@@ -1,0 +1,561 @@
+"""ParticleSet: particle SoA owner + simulation entry point (torch).
+
+Port of the single-device path of the JAX package's
+``_core/particleset.py``. The SoA is a dict of tensors on the fieldset's
+device. ``execute`` drives the engine (``engine.run_chunk``) one
+output-interval chunk at a time, streams trajectory snapshots to the
+ParticleFile writer, and raises the reference's typed exceptions if any
+particle ends a chunk in an error state.
+
+Particle meshes and domain decomposition belong to the scale-out slice of
+the port; the lockstep time window of the JAX package is not ported (the
+card's K1 samples the whole field, see ``ops/interp_kernels``).
+"""
+
+from __future__ import annotations
+
+import os
+import time as _time
+import types
+import warnings
+
+import numpy as np
+import torch
+
+from parcels_tpu_torch._core.engine import DEFAULT_BLOCK_SIZE, _sort_mode_enabled, run_chunk
+from parcels_tpu_torch._core.particle import Particle, create_particle_data
+from parcels_tpu_torch._core.statuscodes import (
+    MIN_ERROR_CODE,
+    StatusCode,
+    raise_error_from_state,
+)
+from parcels_tpu_torch._core.timeutils import timedelta_to_float
+from parcels_tpu_torch._core.warnings_ import KernelWarning, ParticleSetWarning
+
+__all__ = ["ParticleSet", "state_from_numpy"]
+
+#: engine modes of the JAX package that belong to later slices of the port
+_LATER_SLICE_OPTIONS = {
+    "stagecache": "the curvilinear C-grid slice",
+    "colgather": "the remaining-interpolators slice",
+    "uxcol": "the unstructured-mesh slice",
+    "uxcache": "the unstructured-mesh slice",
+}
+
+
+def _to_device(arr, device) -> torch.Tensor:
+    """A device tensor holding a copy of ``arr``, dtype unchanged."""
+    return torch.as_tensor(np.array(arr, copy=True), device=device)
+
+
+def state_from_numpy(field_arrays: dict, pdata: dict, device):
+    """The port's field tensors and SoA from the JAX package's numpy state.
+
+    ``field_arrays`` is ``{"fields": {name: array}, "grids": [{coord:
+    array}]}`` as ``FieldSet.device_arrays()`` holds it; ``pdata`` is a
+    ``ParticleSet._data`` dict. Every array keeps its dtype (f32 positions
+    and ``_tc`` carry, int32 ``state``/``ei``, bool ``_active``).
+    """
+    device = torch.device(device)
+    farrays = {
+        "fields": {k: _to_device(v, device) for k, v in field_arrays["fields"].items()},
+        "grids": [{k: _to_device(v, device) for k, v in g.items()} for g in field_arrays["grids"]],
+    }
+    return farrays, {k: _to_device(v, device) for k, v in pdata.items()}
+
+
+def _host(v: torch.Tensor) -> np.ndarray:
+    return v.detach().cpu().numpy()
+
+
+class ParticleSet:
+    """Fixed-capacity particle container bound to a FieldSet (on its device)."""
+
+    def __init__(self, fieldset, pclass=Particle, t=None, z=None, y=None, x=None,
+                 particle_ids=None, seed: int = 0, **kwargs):
+        self.fieldset = fieldset
+        self._pclass = pclass
+
+        y = np.empty(0) if y is None else np.asarray(y, dtype=np.float64).flatten()
+        x = np.empty(0) if x is None else np.asarray(x, dtype=np.float64).flatten()
+        if particle_ids is None:
+            particle_ids = np.arange(x.size)
+        else:
+            particle_ids = np.asarray(particle_ids).flatten()
+        if z is None:
+            # default z: the shallowest depth level across all grids
+            minz = None
+            for grid in fieldset.gridset:
+                for depth in np.atleast_1d(grid.depth):
+                    if minz is None or abs(depth) < abs(minz):
+                        minz = depth
+            z = np.full(x.size, minz if minz is not None else 0.0)
+        else:
+            z = np.asarray(z, dtype=np.float64).flatten()
+        if not x.size == y.size == z.size:
+            raise ValueError("x, y, z don't all have the same lengths")
+        t = self._normalize_release_times(t, x.size)
+        if x.size != t.size:
+            raise ValueError("t and positions (x, y, z) do not have the same lengths.")
+
+        data = create_particle_data(
+            pclass=pclass,
+            nparticles=x.size,
+            ngrids=len(fieldset.gridset),
+            initial=dict(t=t, z=z, y=y, x=x, particle_id=particle_ids),
+            seed=seed,
+        )
+        var_names = pclass.var_names()
+        for kwvar, kwval in kwargs.items():
+            kwval = np.asarray(kwval).flatten()
+            if kwval.size != x.size:
+                raise ValueError(f"{kwvar} and positions (x, y, z) don't have the same lengths.")
+            if kwvar not in var_names:
+                raise RuntimeError(f"Particle class does not have Variable {kwvar}")
+            data[kwvar][:] = kwval.astype(data[kwvar].dtype)
+        self._data = {k: _to_device(v, self.device) for k, v in data.items()}
+
+    @property
+    def device(self) -> torch.device:
+        return self.fieldset.device
+
+    def _normalize_release_times(self, t, n: int) -> np.ndarray:
+        if t is None or (hasattr(t, "__len__") and len(t) == 0):
+            return np.full(n, np.nan)
+        t = np.atleast_1d(np.asarray(t)).flatten()
+        if np.issubdtype(t.dtype, np.datetime64):
+            if self.fieldset.time_interval is None:
+                raise ValueError("Cannot use datetime release times without a fieldset time interval.")
+            t = timedelta_to_float(t - np.datetime64(self.fieldset.time_interval.left, "ns"))
+        elif np.issubdtype(t.dtype, np.timedelta64):
+            t = timedelta_to_float(t)
+        else:
+            t = t.astype(np.float64)
+        if t.size == 1:
+            t = np.repeat(t, n)
+        if self.fieldset.time_interval is not None:
+            _warn_release_outside_bounds(t, self.fieldset.time_interval)
+        return t
+
+    # -- container protocol --------------------------------------------------
+    def __len__(self):
+        return int(self._data["_active"].sum())
+
+    @property
+    def size(self):
+        return len(self)
+
+    def __repr__(self):
+        return f"ParticleSet(n={len(self)}, device={self.device})"
+
+    def __getattr__(self, name):
+        """Active lanes of a particle variable, as numpy."""
+        data = self.__dict__.get("_data")
+        if data is not None and name in data:
+            arr = _host(data[name])
+            active = _host(data["_active"])
+            if arr.ndim >= 1 and arr.shape[0] == active.shape[0]:
+                return arr[active]
+            return arr
+        raise AttributeError(f"ParticleSet has no attribute {name!r}")
+
+    def __setattr__(self, name, value):
+        data = self.__dict__.get("_data")
+        if data is not None and name in data:
+            arr = data[name].clone()
+            value = torch.as_tensor(np.asarray(value), device=arr.device).to(arr.dtype)
+            arr[data["_active"]] = value
+            data[name] = arr
+            return
+        object.__setattr__(self, name, value)
+
+    @property
+    def state(self):
+        return self.__getattr__("state")
+
+    def populate_indices(self):
+        """Pre-populate the cached element indices (warm start and sort keys)."""
+        farrays = self.fieldset.device_arrays()
+        ei = self._data["ei"].clone()
+        for i, grid in enumerate(self.fieldset.gridset):
+            gpos = grid.make_view(farrays["grids"][i]).search(
+                self._data["z"], self._data["y"], self._data["x"]
+            )
+            zi = torch.clamp(gpos["Z"]["index"], 0, max(grid.zdim - 1, 0))
+            yi = torch.clamp(gpos["Y"]["index"], 0, max(grid.ydim - 1, 0))
+            xi = torch.clamp(gpos["X"]["index"], 0, max(grid.xdim - 1, 0))
+            ei[:, i] = grid.ravel_index(zi, yi, xi).to(ei.dtype)
+        self._data["ei"] = ei
+
+    # -- execution -----------------------------------------------------------
+    def execute(self, kernels, dt, endtime=None, runtime=None, output_file=None,
+                verbose_progress: bool = False, options=None):
+        """Run the kernel chain over the particle set until endtime/runtime.
+
+        Mirrors reference ParticleSet.execute (particleset.py:354-469): the
+        outer loop advances output-interval chunks, each one call into the
+        engine. ``options`` is an :class:`~parcels_tpu_torch.EngineOptions`.
+        """
+        from parcels_tpu_torch._core.options import EngineOptions
+
+        opts = options if options is not None else EngineOptions()
+        if not isinstance(opts, EngineOptions):
+            raise TypeError(f"options must be an EngineOptions. Got {type(opts)}")
+        for name, slice_ in _LATER_SLICE_OPTIONS.items():
+            if getattr(opts, name) == "force":
+                raise NotImplementedError(
+                    f"EngineOptions({name}='force') belongs to {slice_} of the port."
+                )
+        with opts.applied():
+            return self._execute_impl(kernels, dt, endtime, runtime, output_file, verbose_progress)
+
+    def _execute_impl(self, kernels, dt, endtime, runtime, output_file, verbose_progress):
+        if len(self) == 0:
+            return
+        if isinstance(kernels, types.FunctionType):
+            kernels = [kernels]
+        if not isinstance(kernels, list) or len(kernels) == 0:
+            raise ValueError(f"kernels must be a non-empty list or a function. Got {kernels!r}")
+        for f in kernels:
+            if not callable(f):
+                raise TypeError(f"kernels must be callables. Got {type(f)}")
+            _check_kernel_signature(f)
+        self._check_kernel_prerequisites(kernels)
+
+        dt, sign_dt = _convert_dt_to_float(dt)
+        runtime = _convert_runtime_to_float(runtime)
+        # time plumbing sees only ACTIVE lanes (padding lanes carry t=0)
+        active = _host(self._data["_active"])
+        tarr = _host(self._data["t"])
+        release_t = tarr[active]
+        start_time, end_time = _get_simulation_start_and_end_times(
+            self.fieldset.time_interval, release_t, runtime, endtime, sign_dt
+        )
+
+        d = self._data
+        d["dt"] = torch.full_like(d["dt"], dt)
+        if np.isnan(tarr).any():
+            tarr = tarr.copy()
+            tarr[np.isnan(tarr)] = start_time
+            d["t"] = _to_device(tarr, self.device)
+
+        outputdt = output_file.outputdt if output_file else None
+        _warn_outputdt_release_desync(outputdt, start_time, release_t)
+
+        rk45_mode = "RK45_tol" in self.fieldset.context
+        z_occ = self._set_sampler_occupancy_hint()
+        # reference kernel.py:190: every execute() call requeues all active lanes
+        d["state"] = torch.where(d["_active"], int(StatusCode.Evaluate), d["state"]).to(torch.int32)
+
+        self._pad_capacity(DEFAULT_BLOCK_SIZE)
+        if _sort_mode_enabled(self.fieldset) and not bool(self._data["ei"].any()):
+            # sort keys come from the ei cache; seed it so the FIRST chunk
+            # bins correctly instead of overflowing to the gather fix-up
+            self.populate_indices()
+        farrays = self.fieldset.device_arrays()
+        dev = dict(self._data)
+
+        if output_file is not None:
+            output_file.set_metadata(self.fieldset, self._pclass, kernels)
+            output_file.write_snapshot(dict(dev), start_time)
+            next_output = start_time + outputdt * sign_dt
+        else:
+            next_output = None
+
+        pbar = None
+        if verbose_progress:
+            from tqdm import tqdm
+
+            pbar = tqdm(total=sign_dt * (end_time - start_time))
+
+        f32 = dict(dtype=torch.float32, device=self.device)
+        dt_dev = torch.tensor(dt, **f32)
+        wall0 = _time.perf_counter()
+        nchunks = 0
+        time = start_time
+        # cap the steps per chunk; lengths come from a measured per-step cost
+        # model (EWMA seconds per step) targeting ``chunk_target_seconds``
+        max_chunk = int(os.environ.get("PARCELS_TPU_MAX_CHUNK_STEPS", 64))
+        target_s = float(os.environ.get("PARCELS_TPU_CHUNK_TARGET_SECONDS", 20.0))
+        # RK45 trajectories depend on where chunk endtimes force landings, so
+        # wall-time-driven chunk lengths would make them nondeterministic
+        adaptive = target_s > 0 and max_chunk > 0 and bool(dt) and not rk45_mode
+        cur_chunk = min(max_chunk, 2) if adaptive else max_chunk
+        est_per_step = None
+        t_mark = _time.perf_counter()
+        try:
+            # the host reads chunk k's flags after starting chunk k+1; the
+            # chunk-start requeue keeps error/Stop lanes, so a chunk after a
+            # halted one is a no-op and the deferred check sees identical state
+            def drain(pending):
+                nonlocal est_per_step, cur_chunk, t_mark
+                flags, steps_done, idx = pending
+                err_any, stop_any = (int(v) for v in flags.tolist())
+                now = _time.perf_counter()
+                if adaptive and idx > 0:
+                    w = max(now - t_mark, 1e-6) / steps_done
+                    est_per_step = w if est_per_step is None else 0.5 * est_per_step + 0.5 * w
+                    cur_chunk = max(1, min(max_chunk, int(target_s / est_per_step)))
+                t_mark = now
+                if err_any:
+                    self._raise_errors(dev)
+                return bool(stop_any)
+
+            pending = None
+            while sign_dt * (time - end_time) < 0:
+                f = min if sign_dt > 0 else max
+                next_time = f(next_output, end_time) if next_output is not None else end_time
+                if cur_chunk > 0 and dt:
+                    next_time = f(next_time, time + sign_dt * cur_chunk * abs(dt))
+                dev = run_chunk(
+                    self.fieldset, kernels, farrays, dev,
+                    torch.tensor(np.float32(next_time), **f32), dt_dev,
+                    sign_dt=sign_dt, rk45_mode=rk45_mode, z_occ=z_occ,
+                )
+                act, st = dev["_active"], dev["state"]
+                flags = torch.stack([
+                    (act & (st >= MIN_ERROR_CODE)).any(),
+                    (act & (st == StatusCode.StopAllExecution)).any(),
+                ])
+                stop_prev = drain(pending) if pending is not None else False
+                steps_done = max(1, round(abs(float(next_time) - float(time)) / abs(dt))) if dt else 1
+                pending = (flags, steps_done, nchunks)
+
+                if next_output is not None and abs(next_time - next_output) < 1e-3:
+                    # a snapshot must reflect a chunk already checked for errors
+                    stop_prev = drain(pending) or stop_prev
+                    pending = None
+                    if output_file:
+                        output_file.write_snapshot(dict(dev), next_output)
+                    if np.isfinite(outputdt):
+                        next_output += outputdt * sign_dt
+                if pbar is not None:
+                    pbar.update(sign_dt * (next_time - time))
+                time = next_time
+                nchunks += 1
+                if stop_prev:
+                    break
+            if pending is not None:
+                drain(pending)
+        finally:
+            if pbar is not None:
+                pbar.close()
+            self._data = dev
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            wall = _time.perf_counter() - wall0
+            nsteps = abs(time - start_time) / abs(dt) if dt else 0.0
+            self.last_run_stats = {
+                "wall_s": round(wall, 4),
+                "chunks": nchunks,
+                "particles": len(self),
+                "particle_steps_per_s": round(len(self) * nsteps / wall, 1) if wall > 0 else 0.0,
+                "z_occupancy_hint": z_occ,
+                "chunk_steps_final": cur_chunk,
+                "est_seconds_per_step": round(est_per_step, 6) if est_per_step is not None else None,
+            }
+            if output_file is not None:
+                output_file.flush()
+
+    def _raise_errors(self, dev):
+        states = _host(dev["state"])
+        err = _host(dev["_active"]) & (states >= MIN_ERROR_CODE)
+        if not err.any():
+            return
+        idx = int(np.argmax(err))
+        raise_error_from_state(
+            int(states[idx]), z=float(dev["z"][idx]), y=float(dev["y"][idx]),
+            x=float(dev["x"][idx]), t=float(dev["t"][idx]),
+        )
+
+    def _check_kernel_prerequisites(self, kernels):
+        """RK45 context defaults (reference kernel.py:122-161)."""
+        from parcels_tpu_torch.kernels import AdvectionRK45
+
+        for f in kernels:
+            if f is not AdvectionRK45:
+                continue
+            if "next_dt" not in self._pclass.var_names():
+                raise ValueError('ParticleClass requires a "next_dt" for AdvectionRK45 Kernel.')
+            fs = self.fieldset
+            if "RK45_tol" not in fs.context:
+                warnings.warn(
+                    "Setting RK45 tolerance to 10 m. Use fieldset.add_context('RK45_tol', [distance]) to change.",
+                    KernelWarning, stacklevel=2,
+                )
+                fs.add_context("RK45_tol", 10)
+                if fs.gridset and fs.gridset[0].mesh.is_spherical():
+                    fs.context["RK45_tol"] = fs.context["RK45_tol"] / fs.gridset[0].deg2m
+            if "RK45_min_dt" not in fs.context:
+                warnings.warn(
+                    "Setting RK45 minimum timestep to 1 s. Use fieldset.add_context('RK45_min_dt', [timestep]) to change.",
+                    KernelWarning, stacklevel=2,
+                )
+                fs.add_context("RK45_min_dt", 1)
+            if "RK45_max_dt" not in fs.context:
+                warnings.warn(
+                    "Setting RK45 maximum timestep to 1 day. Use fieldset.add_context('RK45_max_dt', [timestep]) to change.",
+                    KernelWarning, stacklevel=2,
+                )
+                fs.add_context("RK45_max_dt", 60 * 60 * 24)
+
+    def _pad_capacity(self, block_size: int):
+        """Pad the SoA with inactive lanes to a canonical lane count: the next
+        power of two (>= 8) below 8192, multiples of 8192 beyond, then
+        multiples of ``block_size``."""
+        n = self._data["state"].shape[0]
+        if n < 8192:
+            target = 8
+            while target < n:
+                target *= 2
+        else:
+            target = -(-n // 8192) * 8192
+        if target > block_size and target % block_size:
+            target = -(-target // block_size) * block_size
+        pad = target - n
+        if pad == 0:
+            return
+        out = {}
+        for k, v in self._data.items():
+            if k == "_rng":
+                out[k] = v
+                continue
+            # -1 sentinel: padded lanes must never look like live ids
+            fill = torch.full((pad,) + tuple(v.shape[1:]), -1 if k == "particle_id" else 0,
+                              dtype=v.dtype, device=v.device)
+            out[k] = torch.cat([v, fill])
+        out["_active"][n:] = False
+        self._data = out
+
+    def _set_sampler_occupancy_hint(self) -> float:
+        """Quantized fraction of z-cells the live batch occupies, for the
+        binned planner (a surface-only release occupies 1 of Z cells)."""
+        from parcels_tpu_torch.ops.binned_sample import quantize_z_occupancy
+
+        frac = 1.0
+        depth = max((np.asarray(g.depth) for g in self.fieldset.gridset),
+                    key=lambda d: d.size, default=None)
+        if depth is not None and depth.ndim == 1 and depth.size > 2 and bool(np.all(np.diff(depth) > 0)):
+            z = _host(self._data["z"])
+            act = _host(self._data["_active"])
+            z = z[act] if act.any() else z
+            zi = np.clip(np.searchsorted(depth, z, side="right") - 1, 0, depth.size - 2)
+            frac = np.unique(zi).size / max(depth.size - 1, 1)
+        return quantize_z_occupancy(frac)
+
+
+def _check_kernel_signature(f):
+    """Kernels must accept exactly (particles, fieldset) (reference kernel.py:70)."""
+    import inspect
+
+    try:
+        params = [
+            p for p in inspect.signature(f).parameters.values()
+            if p.kind in (p.POSITIONAL_ONLY, p.POSITIONAL_OR_KEYWORD)
+        ]
+    except (TypeError, ValueError):
+        return
+    if len(params) != 2:
+        raise ValueError(
+            f"Kernel {getattr(f, '__name__', f)!r} must have signature "
+            f"(particles, fieldset); got {len(params)} positional parameters."
+        )
+
+
+def _warn_outputdt_release_desync(outputdt, starttime, release_times):
+    if not outputdt:
+        return
+    rt = np.asarray(release_times)
+    finite = np.isfinite(rt)
+    if np.any(np.mod(rt[finite] - starttime, outputdt) != 0):
+        warnings.warn(
+            "Some of the particles have a start time difference that is not a multiple of outputdt. "
+            "This could cause the first output of some of the particles that start later "
+            "in the simulation to be at a different time than expected.",
+            ParticleSetWarning,
+            stacklevel=2,
+        )
+
+
+def _warn_release_outside_bounds(release_times, time_interval):
+    if np.isnan(release_times).all():
+        return
+    length = timedelta_to_float(time_interval.right - time_interval.left)
+    if np.any(release_times < 0) or np.any(release_times > length):
+        warnings.warn(
+            "Some particles are set to be released outside the FieldSet's executable time domain.",
+            ParticleSetWarning,
+            stacklevel=2,
+        )
+
+
+def _convert_dt_to_float(dt):
+    try:
+        dt = timedelta_to_float(dt)
+        sign_dt = int(np.sign(dt))
+    except (ValueError, TypeError) as e:
+        raise ValueError(
+            f"dt must be a non-zero datetime.timedelta or np.timedelta64 object, got {dt!r}"
+        ) from e
+    if sign_dt not in (-1, 1):
+        raise ValueError(f"dt must be a non-zero datetime.timedelta or np.timedelta64 object, got {dt!r}")
+    return dt, sign_dt
+
+
+def _convert_runtime_to_float(runtime):
+    if runtime is None:
+        return None
+    try:
+        runtime = timedelta_to_float(runtime)
+    except (ValueError, TypeError) as e:
+        raise ValueError(
+            f"The runtime must be a datetime.timedelta, np.timedelta64 or float object. Got {type(runtime)}"
+        ) from e
+    if runtime < 0:
+        raise ValueError(f"The runtime must be a non-negative timedelta or float. Got {runtime!r}")
+    return runtime
+
+
+def _get_simulation_start_and_end_times(time_interval, release_times, runtime, endtime, sign_dt):
+    """Resolve (start, end) float seconds (reference particleset.py:522-584)."""
+    if runtime is not None and endtime is not None:
+        raise ValueError(
+            f"runtime and endtime are mutually exclusive - provide one or the other. "
+            f"Got runtime={runtime!r}, endtime={endtime!r}"
+        )
+    if runtime is None and time_interval is None:
+        raise ValueError("The runtime must be provided when the time_interval is not defined for a fieldset.")
+    if runtime is None and endtime is None:
+        raise ValueError("Either runtime or endtime must be provided.")
+
+    release_times = np.asarray(release_times, dtype=np.float64)
+    finite = release_times[np.isfinite(release_times)]
+    if sign_dt == 1:
+        first_release = finite.min() if finite.size else np.nan
+    else:
+        first_release = finite.max() if finite.size else np.nan
+
+    if time_interval is not None and endtime is not None:
+        if isinstance(endtime, (np.datetime64, np.timedelta64)) or type(endtime) is type(time_interval.left):
+            if endtime not in time_interval:
+                raise ValueError(
+                    f"Provided end time {endtime!r} is not in fieldset time interval {time_interval!r}."
+                )
+            endtime = timedelta_to_float(endtime - time_interval.left)
+        else:
+            raise ValueError(
+                f"The endtime must be of the same type as the fieldset.time_interval start time. "
+                f"Got {endtime!r} with {time_interval!r}"
+            )
+
+    if time_interval is None:
+        fieldset_start = 0.0 if sign_dt == 1 else float(runtime)
+    else:
+        fieldset_start = (
+            0.0 if sign_dt == 1 else timedelta_to_float(time_interval.right - time_interval.left)
+        )
+
+    start_time = float(first_release) if np.isfinite(first_release) else fieldset_start
+    if endtime is None:
+        endtime = start_time + sign_dt * float(runtime)
+    return start_time, float(endtime)
