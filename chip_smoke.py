@@ -5,7 +5,8 @@ Run from the root of a checkout, on a machine with a card and nvcc:
 
     python3 chip_smoke.py
 
-Phases (each raises on failure; there is no CPU fallback):
+Phases (each raises on failure; there is no CPU fallback; every launch
+counter is set to 0 just before a path runs and read just after):
 
 0. the card's name and power limit (nvidia-smi);
 1. build every CUDA kernel of the port from ``parcels_tpu_torch/csrc`` (nvcc, sm_90a);
@@ -23,7 +24,20 @@ Phases (each raises on failure; there is no CPU fallback):
    each launch counter is set to 0 just before a run and read just after;
 5. run 4(b) at 64K particles on the card and on the CPU: positions agree to
    rtol 1e-5, states and activity are identical;
-6. the moving-eddy closed form on the card.
+6. the moving-eddy closed form on the card;
+7. K3 (fused C-grid RK4 step) against its plain version at 2^23 lanes on
+   rows of the config-5 grid (a MOi-shaped global curvilinear C-grid,
+   (T, Z, Y, X) = (2, 50, 1500, 2000), U/V filled on the card), NaN lanes
+   and invalid rows included;
+8. the C-grid engine path end to end: 2^23 particles at z = 1 m through
+   ``ParticleSet.execute(AdvectionRK4)`` at dt 600 s for 6 steps on the
+   config-5 fieldset (curvilinear search, stage cache);
+9. the K3 hit-and-repair stepper from the SoA cache of one engine step: one
+   warm-up and 24 timed steps with the repair, 24 without, against the
+   engine advancing the same warm batch 25 steps;
+10. card against CPU: phase 8 at 64K particles (stage cache forced on the
+    CPU), and the rectilinear C-grid peninsula, which launches K1 on the
+    card.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Field data and
@@ -248,19 +262,223 @@ def edge_phase(torch, dev):
         "(1,1,64,1024) with dead chunks: equal to their plain versions")
 
 
-def counts():
+#: f32 operations per lane of one K3 step, counting each add, multiply,
+#: compare, select, division, square root and trig call as one: per stage
+#: about 162 adds/multiplies/compares, 9 divisions, 5 square roots and 9 trig
+#: calls, plus about 30 for the RK4 combination
+K3_OPS_PER_LANE = 4 * (162 + 9 + 5 + 9) + 30
+#: bytes a K3 lane must move: row planes 0-14 and 16-25 (plane 15 is the cell
+#: table's zero pad column, which no stage reads), uv planes 0-7 and state
+#: planes 0-3 read once, 8 output planes written once
+K3_BYTES_PER_LANE = (25 + 8 + 4) * 4 + 8 * 4
+
+
+def k3_inputs(torch, fs, n, seed, dt=600.0):
+    """K3 planes for ``n`` lanes on the C-grid of ``fs``: random cells, points
+    at random (xsi, eta) in [-0.02, 1.02]^2 of their cell (so some stages
+    leave it), random face values, every 97th lane NaN and every 101st row
+    invalid."""
+    from parcels_tpu_torch.ops import stagecache
+    from parcels_tpu_torch.ops.fused_rk4 import ROW_PLANES
+
+    dev = torch.device("cuda")
+    g = fs.gridset[0]
+    vf = fs.build_views(fs.device_arrays()).UV
+    rng = np.random.default_rng(seed)
+    ny, nx = g.lon.shape
+    yi = rng.integers(0, ny - 1, n)
+    xi = rng.integers(0, nx - 1, n)
+    a = rng.uniform(-0.02, 1.02, n)
+    b = rng.uniform(-0.02, 1.02, n)
+
+    def bilinear(arr):
+        return ((1 - a) * (1 - b) * arr[yi, xi] + a * (1 - b) * arr[yi, xi + 1]
+                + a * b * arr[yi + 1, xi + 1] + (1 - a) * b * arr[yi + 1, xi])
+
+    x = torch.as_tensor(bilinear(g.lon).astype(np.float32), device=dev)
+    y = torch.as_tensor(bilinear(g.lat).astype(np.float32), device=dev)
+    x[::97] = float("nan")
+    cell = torch.as_tensor(yi * (nx - 1) + xi, device=dev)
+    rows = stagecache._rows(vf, cell)
+    valid = torch.ones(n, device=dev)
+    valid[::101] = 0.0
+    rowsT = torch.cat([rows.t(), valid[None],
+                       torch.zeros((ROW_PLANES - rows.shape[1] - 1, n), device=dev)]).contiguous()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    uvT = (torch.rand((8, n), generator=gen, device=dev) - 0.5) * 0.6
+    z = torch.zeros(n, device=dev)
+    state = torch.stack([x, y, torch.full_like(x, dt), torch.full_like(x, dt), z, z, z, z])
+    return rowsT, uvT, state.contiguous()
+
+
+def k3_phase(torch, fs, n, seed=11, dt=600.0):
+    """K3 against its plain version on the card; returns the kernel line."""
+    from parcels_tpu_torch.ops.fused_rk4 import fused_rk4_step, fused_rk4_step_plain
+
+    rowsT, uvT, state = k3_inputs(torch, fs, n, seed, dt)
+    spec = fs.gridset[0].spec
+    t1 = float(fs.gridset[0].time[1])
+    args = (spec.deg2m, 1.0 / t1, dt)
+    out = fused_rk4_step(rowsT, uvT, state, *args)
+    torch.cuda.synchronize()
+    ref = fused_rk4_step_plain(rowsT, uvT, state, *args)
+    xy_k, xy_p = out[:2], ref[:2]
+    if not torch.equal(torch.isnan(xy_k), torch.isnan(xy_p)):
+        raise AssertionError("K3: NaN lanes differ from the plain version")
+    fin = ~torch.isnan(xy_p)
+    err = float((xy_k - xy_p).abs()[fin].max())
+    same = ((out == ref) | (torch.isnan(out) & torch.isnan(ref))).all(dim=0)
+    bitwise = int(same.sum())
+    miss_diff = int((out[4] != ref[4]).sum())
+    miss_share = float(ref[4].mean())
+    # acceptance: within 2e-5 deg, miss flags differing on at most 1e-5 of
+    # the lanes (the target, equal rounding order, is bit for bit)
+    if err > 2e-5 or miss_diff > 1e-5 * n:
+        raise AssertionError(f"K3 disagrees with its plain version: max abs err {err} deg, "
+                             f"{miss_diff} miss flags differ")
+    del ref
+    ms = cuda_ms(torch, lambda: fused_rk4_step(rowsT, uvT, state, *args))
+    plain_ms = cuda_ms(torch, lambda: fused_rk4_step_plain(rowsT, uvT, state, *args),
+                       reps=3, warmup=1)
+    bound_ms, bound_by = bound(n * K3_BYTES_PER_LANE, n * K3_OPS_PER_LANE)
+    log(f"[K3] lanes {n}: max abs err x/y {err:.3g} deg, bitwise-equal lanes {bitwise} of {n}, "
+        f"miss flags differing {miss_diff}, miss share {miss_share:.4f}; kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
+        f"{K3_BYTES_PER_LANE} B and {K3_OPS_PER_LANE} ops a lane); no single library call "
+        f"computes this step")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None)
+
+
+def _wrappers():
     from parcels_tpu_torch.ops.binned_sample import slab_sample
+    from parcels_tpu_torch.ops.fused_rk4 import fused_rk4_step
     from parcels_tpu_torch.ops.interp_kernels import fold_sample
 
-    return {"fold_sample": fold_sample.launches, "slab_sample": slab_sample.launches}
+    return {"fold_sample": fold_sample, "slab_sample": slab_sample, "fused_rk4": fused_rk4_step}
+
+
+def counts():
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 def zero_counts():
-    from parcels_tpu_torch.ops.binned_sample import slab_sample
-    from parcels_tpu_torch.ops.interp_kernels import fold_sample
+    for fn in _wrappers().values():
+        fn.launches = 0
 
-    fold_sample.launches = 0
-    slab_sample.launches = 0
+
+def zero_cache_counts():
+    from parcels_tpu_torch.ops.stagecache import cgrid_cached_eval as ce
+
+    ce.full_evals = ce.miss_rounds = ce.checked_lanes = ce.misses = 0
+
+
+def cache_counts():
+    from parcels_tpu_torch.ops.stagecache import cgrid_cached_eval as ce
+
+    share = ce.misses / ce.checked_lanes if ce.checked_lanes else 0.0
+    return dict(full_evals=ce.full_evals, miss_rounds=ce.miss_rounds, miss_share_per_stage=share)
+
+
+#: the JAX package's config 5: global 1/12-degree-like MOi C-grid, (T, Z, Y, X)
+CONFIG5 = (2, 50, 1500, 2000)
+#: config-5 particle count: 2^23
+CONFIG5_LANES = 1 << 23
+
+
+def config5_fieldset(torch, tp, device, shape=CONFIG5):
+    """MOi-shaped curvilinear C-grid fieldset at ``shape`` on ``device``,
+    built through nemo_to_sgrid from zero data (the velocities are filled
+    on the card afterwards)."""
+    from parcels_tpu_torch.convert import nemo_to_sgrid
+    from parcels_tpu_torch.datasets import moi_like_inputs
+
+    T, Z, Y, X = shape
+    fields, coords = moi_like_inputs(xdim=X, ydim=Y, zdim=Z, tdim=T, zero_data=True)
+    return tp.FieldSet.from_sgrid_conventions(nemo_to_sgrid(fields=fields, coords=coords),
+                                              device=device)
+
+
+def fill_velocities(torch, fs, seed=3):
+    """U/V uniform in +-0.3 m/s from a seeded generator on the card."""
+    farrays = fs.device_arrays()
+    g = torch.Generator(device=fs.device).manual_seed(seed)
+    for name in ("U", "V"):
+        farrays["fields"][name].uniform_(-0.3, 0.3, generator=g)
+
+
+def config5_seeds(n, seed=1):
+    """Particles at z = 1 m, lon uniform in +-170, lat uniform in -60..70."""
+    rng = np.random.default_rng(seed)
+    return dict(x=rng.uniform(-170.0, 170.0, n), y=rng.uniform(-60.0, 70.0, n),
+                z=np.full(n, 1.0), t=np.zeros(n))
+
+
+def run_cgrid(tp, fs, seeds, steps, dt=600):
+    pset = tp.ParticleSet(fs, **seeds)
+    pset.execute(tp.AdvectionRK4, dt=np.timedelta64(dt, "s"),
+                 runtime=np.timedelta64(steps * dt, "s"))
+    x, y = pset.x, pset.y
+    n = seeds["x"].size
+    if not (x.shape == y.shape == (n,) and np.isfinite(x).all() and np.isfinite(y).all()):
+        raise AssertionError("C-grid path: positions are not finite of the expected shape")
+    if int((pset.state >= tp.StatusCode.Error).sum()):
+        raise AssertionError("C-grid path: particles ended in an error state")
+    return pset
+
+
+def k3_path_phase(torch, tp, fs, seeds, dt=600.0, steps=24):
+    """Phase 9: the fused hit-and-repair stepper from one engine step's SoA
+    cache, against the engine advancing the same warm batch."""
+    from parcels_tpu_torch.ops.fused_rk4 import FusedRK4Stepper
+
+    pset = run_cgrid(tp, fs, seeds, 1, int(dt))  # the warm batch
+    warm = dict(pset._data)
+    n = seeds["x"].size
+    out = {}
+    for repair in (True, False):
+        stepper = FusedRK4Stepper(fs, warm, dt, repair=repair)
+        if repair:
+            zero_counts()
+        first = stepper.one_step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cnts = [stepper.one_step() for _ in range(steps)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        cnts = [int(first)] + [int(c) for c in cnts]
+        if repair:
+            launches = counts()["fused_rk4"]
+            # reading the state raises if a step overflowed its repair round
+            xy = stepper.state[:2].cpu().numpy()
+        out["repair" if repair else "norepair"] = dict(
+            rate=n * steps / wall, wall=wall, miss_share=float(np.mean(cnts)) / stepper.n,
+            miss_max=max(cnts), kcap=stepper.kcap)
+        del stepper
+    torch.cuda.empty_cache()
+    # the engine advances the same warm batch as many steps
+    pset.execute(tp.AdvectionRK4, dt=np.timedelta64(int(dt), "s"),
+                 runtime=np.timedelta64(int(dt) * (steps + 1), "s"))
+    act = warm["_active"].cpu().numpy()
+    d = np.maximum(np.abs(xy[0][act] - pset.x), np.abs(xy[1][act] - pset.y))
+    over = float((d > 1e-4).mean())
+    # acceptance: at most 1 % of lanes beyond 1e-4 deg, none beyond 0.08 deg
+    # (under one cell of the 2000 x 1500 grid)
+    if over > 0.01 or d.max() > 0.08:
+        raise AssertionError(f"K3 path vs engine: {over:.4%} of lanes beyond 1e-4 deg, "
+                             f"max {d.max():.3g} deg")
+    out.update(launches=launches, max_dxy=float(d.max()), share_over_1e4=over,
+               engine_rate=pset.last_run_stats["particle_steps_per_s"],
+               engine_wall=pset.last_run_stats["wall_s"])
+    return out
+
+
+def compare_runs(a, b, tol):
+    """(share of lanes beyond ``tol``, max difference, states equal on the rest)."""
+    d = np.maximum(np.abs(a.x - b.x), np.abs(a.y - b.y))
+    near = d <= tol
+    return float((~near).mean()), float(d.max()), bool(np.array_equal(a.state[near],
+                                                                      b.state[near]))
 
 
 def run_path(torch, tp, fs, n, kernel, runtime_s, seed, zrange=None):
@@ -359,11 +577,105 @@ def main() -> int:
         raise AssertionError(f"moving eddy: x {pset.x[0]} vs closed form {exp}")
     log(f"[eddy] x {pset.x[0]:.3f} closed form {exp:.3f} rel err {rel:.3g}")
 
+    # 7: K3 against its plain version at the config-5 lane count, on rows of
+    # the config-5 grid
+    t_fs = time.perf_counter()
+    fs5 = config5_fieldset(torch, tp, "cuda")
+    fill_velocities(torch, fs5)
+    torch.cuda.synchronize()
+    log(f"[config5] fieldset {CONFIG5} built and filled in {time.perf_counter() - t_fs:.1f} s")
+    k3 = k3_phase(torch, fs5, CONFIG5_LANES)
+    torch.cuda.empty_cache()
+
+    # 8: the C-grid engine path end to end at config 5: 6 steps, as the
+    # first step (every persistent cache entry starts invalid) and 5 more
+    seeds5 = config5_seeds(CONFIG5_LANES)
+    zero_counts()
+    zero_cache_counts()
+    p8 = run_cgrid(tp, fs5, seeds5, 1)
+    c8a, s8a = cache_counts(), p8.last_run_stats
+    zero_cache_counts()
+    p8.execute(tp.AdvectionRK4, dt=np.timedelta64(600, "s"), runtime=np.timedelta64(3000, "s"))
+    l8, c8b, s8b = counts(), cache_counts(), p8.last_run_stats
+    if not (np.isfinite(p8.x).all() and np.isfinite(p8.y).all()) or int(
+            (p8.state >= tp.StatusCode.Error).sum()):
+        raise AssertionError("C-grid path: non-finite positions or error states after 6 steps")
+    del p8
+    torch.cuda.empty_cache()
+    wall8 = s8a["wall_s"] + s8b["wall_s"]
+    log(f"[e2e cgrid] {CONFIG5} {CONFIG5_LANES} particles RK4 dt 600 s 6 steps: "
+        f"particle_steps_per_s {6 * CONFIG5_LANES / wall8:.1f} wall_s {wall8:.4f}; step 1: "
+        f"wall_s {s8a['wall_s']} stage cache {c8a}; steps 2-6: particle_steps_per_s "
+        f"{s8b['particle_steps_per_s']} wall_s {s8b['wall_s']} stage cache {c8b}; "
+        f"launches {l8}")
+
+    # 9: the K3 hit-and-repair path from the same seeds
+    k9 = k3_path_phase(torch, tp, fs5, seeds5)
+    log(f"[K3 path] {CONFIG5_LANES} lanes, 24 timed steps: with repair "
+        f"{k9['repair']['rate']:.1f} particle-steps/s (wall {k9['repair']['wall']:.4f} s, "
+        f"miss share/step {k9['repair']['miss_share']:.5f}, max {k9['repair']['miss_max']} "
+        f"of kcap {k9['repair']['kcap']}); without repair {k9['norepair']['rate']:.1f} "
+        f"particle-steps/s (wall {k9['norepair']['wall']:.4f} s); engine on the same warm "
+        f"batch, 25 steps: {k9['engine_rate']} particle-steps/s (wall {k9['engine_wall']} s); "
+        f"after 25 steps max |dx|,|dy| {k9['max_dxy']:.3g} deg, share over 1e-4 deg "
+        f"{k9['share_over_1e4']:.5f}; launches {k9['launches']}")
+    if k9["launches"] < 25:
+        raise AssertionError("K3 was not launched on every step of its path")
+
+    # 10: card against CPU: phase 8 at 64K particles, and the rectilinear
+    # C-grid peninsula (K1 on the card)
+    seeds10 = config5_seeds(1 << 16, seed=5)
+    fs5_cpu = config5_fieldset(torch, tp, "cpu")
+    for name in ("U", "V"):
+        fs5_cpu.device_arrays()["fields"][name].copy_(fs5.device_arrays()["fields"][name].cpu())
+    a10 = run_cgrid(tp, fs5, seeds10, 6)
+    os.environ["PARCELS_TPU_STAGECACHE"] = "force"
+    try:
+        b10 = run_cgrid(tp, fs5_cpu, seeds10, 6)
+    finally:
+        del os.environ["PARCELS_TPU_STAGECACHE"]
+    over, dmax, same_state = compare_runs(a10, b10, 1e-4)
+    # tolerance-edge lanes (a (xsi, eta) on the +-2e-4 in-cell edge) may pick
+    # the neighbouring cell: at most 0.1 % of lanes
+    if over > 1e-3 or not same_state:
+        raise AssertionError(f"C-grid card vs CPU: {over:.4%} of lanes beyond 1e-4 deg, "
+                             f"states equal elsewhere: {same_state}")
+    log(f"[card vs cpu cgrid] 64K particles, 6 RK4 steps at {CONFIG5} (stage cache on both): "
+        f"max |difference| {dmax:.3g} deg, share beyond 1e-4 deg {over:.5f}, states equal")
+    del fs5_cpu, a10, b10
+
+    from parcels_tpu_torch.datasets import peninsula_dataset
+
+    ds_p = peninsula_dataset(grid_type="C")
+    rng = np.random.default_rng(8)
+    pen = dict(x=np.full(4096, 3e3), y=rng.uniform(5e3, 45e3, 4096), t=np.zeros(4096))
+    runs = {}
+    for dev_name in ("cuda", "cpu"):
+        fs_p = tp.FieldSet.from_sgrid_conventions(ds_p, mesh="flat", device=dev_name)
+        zero_counts()
+        runs[dev_name] = tp.ParticleSet(fs_p, **pen)
+        runs[dev_name].execute(tp.AdvectionRK4, dt=np.timedelta64(60, "s"),
+                               runtime=np.timedelta64(3600, "s"))
+        if dev_name == "cuda":
+            lp = counts()
+    if lp["fold_sample"] == 0:
+        raise AssertionError("K1 was not launched on the C-grid peninsula")
+    for var in ("x", "y"):
+        np.testing.assert_allclose(getattr(runs["cuda"], var), getattr(runs["cpu"], var),
+                                   rtol=1e-5, atol=1e-2)
+    np.testing.assert_array_equal(runs["cuda"].state, runs["cpu"].state)
+    log(f"[peninsula cgrid] 4096 particles, 60 RK4 steps, card vs CPU within rtol 1e-5; "
+        f"launches {lp}")
+
     kernels = [
         dict(name="fold_sample", route="cuda", source="parcels_tpu_torch/csrc/fold_sample.cu",
-             replaces="parcels_tpu/ops/interp_kernels.py:77", launches=la["fold_sample"], **k1),
+             replaces="parcels_tpu/ops/interp_kernels.py:77", launches=la["fold_sample"],
+             launches_by_path={"e2e_a": la["fold_sample"], "cgrid_peninsula": lp["fold_sample"]},
+             **k1),
         dict(name="slab_sample", route="cuda", source="parcels_tpu_torch/csrc/slab_sample.cu",
              replaces="parcels_tpu/ops/binned_sample.py:489", launches=lb["slab_sample"], **k2),
+        dict(name="fused_rk4", route="cuda", source="parcels_tpu_torch/csrc/fused_rk4.cu",
+             replaces="scripts/bench_fused_rk4.py:134", launches=k9["launches"], **k3),
     ]
     log(json.dumps({"kernels": kernels}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -1,8 +1,10 @@
 """parcels_tpu_torch — the PyTorch/CUDA port of parcels_tpu.
 
 Same public names as ``parcels_tpu`` for what the port has landed so far:
-structured rectilinear A-grid fieldsets, ``ParticleSet.execute`` with the
-advection kernels, and Parquet trajectory output. Field sampling runs
+structured rectilinear and curvilinear fieldsets on A- and C-grids (with
+the NEMO converter ``convert.nemo_to_sgrid`` and the C-grid stage cache),
+``ParticleSet.execute`` with the advection kernels, and Parquet trajectory
+output. Field sampling runs
 through hand-written CUDA kernels for Hopper (``ops/``) on the card, and
 through their plain PyTorch versions for tensors on the CPU.
 
@@ -20,7 +22,7 @@ Quick start::
 This package never imports JAX or ``parcels_tpu``.
 """
 
-from parcels_tpu_torch import kernels
+from parcels_tpu_torch import convert, kernels
 from parcels_tpu_torch._core.field import Field, VectorField
 from parcels_tpu_torch._core.fieldset import FieldSet
 from parcels_tpu_torch._core.grid import XGrid
@@ -49,7 +51,13 @@ from parcels_tpu_torch._core.warnings_ import (
     ParticleSetWarning,
 )
 from parcels_tpu_torch._logging import logger
-from parcels_tpu_torch.interpolators import XConstantField, XLinear, XLinear_Velocity
+from parcels_tpu_torch.interpolators import (
+    CGrid_Tracer,
+    CGrid_Velocity,
+    XConstantField,
+    XLinear,
+    XLinear_Velocity,
+)
 from parcels_tpu_torch.kernels import (
     AdvectionEE,
     AdvectionRK2,
@@ -71,6 +79,8 @@ __all__ = [
     "AdvectionRK45",
     "AllParcelsErrorCodes",
     "CFDatetime",
+    "CGrid_Tracer",
+    "CGrid_Velocity",
     "EngineOptions",
     "Field",
     "FieldEvalWarning",
@@ -100,6 +110,7 @@ __all__ = [
     "XGrid",
     "XLinear",
     "XLinear_Velocity",
+    "convert",
     "get_default_particle",
     "get_mesh",
     "kernels",

@@ -149,9 +149,13 @@ def run_chunk(
     inactive lanes); blocks are independent, so per-block loops equal one
     global loop.
     """
+    from parcels_tpu_torch.ops import stagecache
+
     kernel_fns = tuple(kernel_fns)
     block_size = DEFAULT_BLOCK_SIZE
     fsview = fieldset.build_views(farrays)
+    # the stage cache's fused cell tables, built before the step loop
+    stagecache.prebuild_tables(fsview)
     n = pdata["state"].shape[0]
 
     sort_field = _pick_sort_field(fieldset) if _sort_mode_enabled(fieldset) else None
@@ -264,14 +268,23 @@ def engine_step(
         pd["dt"] = torch.clamp_max(torch.maximum(pd["dt"], -tte), 0.0).to(pd["dt"].dtype)
 
     # kernel chain; each kernel is followed by masked Repeat resubmission
-    # (RK45 adaptive dt, reference kernel.py:208-218)
+    # (RK45 adaptive dt, reference kernel.py:208-218). The C-grid stage cache
+    # never crosses a kernel call; its final entries persist in the SoA.
+    from parcels_tpu_torch.ops import stagecache
+
+    def call(view):
+        stagecache.reset(fsview)
+        f(view, fsview)
+        stagecache.flush(fsview, pd)
+        stagecache.reset(fsview)
+
     for f in kernel_fns:
-        f(Particles(pd, eval_mask, sorted_hint, z_occ), fsview)
+        call(Particles(pd, eval_mask, sorted_hint, z_occ))
         while True:
             repeat = pd["_active"] & (pd["state"] == StatusCode.Repeat)
             if not bool(repeat.any()):
                 break
-            f(Particles(pd, repeat, sorted_hint, z_occ), fsview)
+            call(Particles(pd, repeat, sorted_hint, z_occ))
 
     # position/time update for lanes still in a normal state
     # (reference kernel.py:108-120, 222-224)

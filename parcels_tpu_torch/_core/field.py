@@ -103,14 +103,15 @@ class VectorField:
 
 
 class GridView:
-    __slots__ = ("spec", "garrs")
+    __slots__ = ("spec", "garrs", "lookup_meta")
 
-    def __init__(self, spec, garrs):
+    def __init__(self, spec, garrs, lookup_meta=None):
         self.spec = spec
         self.garrs = garrs
+        self.lookup_meta = lookup_meta
 
-    def search(self, z, y, x):
-        return grid_search(self.spec, self.garrs, z, y, x)
+    def search(self, z, y, x, ei=None):
+        return grid_search(self.spec, self.garrs, z, y, x, ei, self.lookup_meta)
 
 
 class FieldView:
@@ -138,9 +139,12 @@ class FieldView:
 
 
 class VectorFieldView:
-    __slots__ = ("name", "U", "V", "W", "grid", "igrid", "interp_method", "vector_type")
+    __slots__ = (
+        "name", "U", "V", "W", "grid", "igrid", "interp_method", "vector_type",
+        "_stage_cache", "_sc_owner", "_cell_table",
+    )
 
-    def __init__(self, name, U, V, W, interp_method):
+    def __init__(self, name, U, V, W, interp_method, sc_owner=False):
         self.name = name
         self.U = U
         self.V = V
@@ -149,8 +153,20 @@ class VectorFieldView:
         self.igrid = U.igrid
         self.interp_method = interp_method
         self.vector_type = "3D" if W is not None else "2D"
+        # per-kernel-invocation cell cache (ops/stagecache.py); the engine
+        # resets it before every kernel call
+        self._stage_cache = None
+        # does this view own the persistent SoA cache columns
+        # (stagecache.soa_cache_owner)?
+        self._sc_owner = bool(sc_owner)
+        # fused per-cell [pic | geometry] row table (stagecache.cell_table)
+        self._cell_table = None
 
     def eval(self, t, z, y, x, particles: Particles | None = None):
+        from parcels_tpu_torch.ops import stagecache
+
+        if stagecache.enabled(self):
+            return stagecache.cgrid_cached_eval(self, t, z, y, x, particles)
         ppos, gpos = _get_positions(self.U, t, z, y, x, particles)
         u, v, w = self.interp_method.interp(ppos, gpos, self)
         if particles is not None:
@@ -188,7 +204,9 @@ def _get_positions(field: FieldView, t, z, y, x, particles: Particles | None):
         tau = torch.zeros_like(t)
         t_oob = None
 
-    gpos = field.grid.search(z, y, x)
+    # the cached element index warm-starts the curvilinear search
+    ei = particles._get_ei(field.igrid) if particles is not None else None
+    gpos = field.grid.search(z, y, x, ei=ei)
     gpos["T"] = {"index": ti, "bcoord": tau}
     # the engine keeps the SoA sorted -> the binned slab sampler applies
     gpos["_sorted"] = bool(particles is not None and particles._sorted_hint)
@@ -223,7 +241,8 @@ def _ei_cache_pointless(spec, field: FieldView) -> bool:
     from parcels_tpu_torch.ops.interp_kernels import fits_fast_path
 
     return (
-        spec.lon_uniform is not None
+        not spec.curvilinear
+        and spec.lon_uniform is not None
         and spec.lat_uniform is not None
         and (spec.zdim <= 1 or spec.depth_uniform is not None)
         and fits_fast_path(tuple(field.data.shape))

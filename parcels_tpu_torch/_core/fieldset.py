@@ -1,16 +1,17 @@
 """FieldSet: host container of Fields + device tensors (torch).
 
-Port of the JAX package's ``_core/fieldset.py`` for structured A-grid
-datasets: SGRID-convention ingestion, vector-field autodiscovery, constant
-fields and context constants readable inside kernels. At ingest every
-field is transposed on the host to a dense (T, Z, Y, X) block;
-``device_arrays()`` ships data and grid coordinates to the fieldset's
-device once and caches them.
+Port of the JAX package's ``_core/fieldset.py`` for structured datasets:
+SGRID-convention ingestion (rectilinear or curvilinear, A- or C-grid),
+vector-field autodiscovery with C-grid detection, constant fields and
+context constants readable inside kernels. At ingest every field is
+transposed on the host to a dense (T, Z, Y, X) block; ``device_arrays()``
+ships data, grid coordinates and search tables to the fieldset's device
+once and caches them.
 
 The fieldset's device is ``cuda`` unless the caller names another; without
 CUDA the default raises instead of running on the CPU. Parts of the JAX
-package that belong to later slices of the port (C-grid velocities, UGRID,
-time windows) raise ``NotImplementedError``.
+package that belong to later slices of the port (UGRID, time windows)
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -23,9 +24,14 @@ import torch
 from parcels_tpu_torch import _sgrid as sgrid
 from parcels_tpu_torch import xrlite as xr
 from parcels_tpu_torch._core.field import Field, FieldView, VectorField, VectorFieldView
-from parcels_tpu_torch._core.grid import LATER_SLICE_CURVILINEAR, GridSpec, XGrid
+from parcels_tpu_torch._core.grid import GridSpec, XGrid
 from parcels_tpu_torch._core.mesh import get_mesh
-from parcels_tpu_torch.interpolators import XConstantField, XLinear, XLinear_Velocity
+from parcels_tpu_torch.interpolators import (
+    CGrid_Velocity,
+    XConstantField,
+    XLinear,
+    XLinear_Velocity,
+)
 
 __all__ = ["FieldSet", "resolve_device"]
 
@@ -107,8 +113,10 @@ class _ConstantGrid(XGrid):
         self.time = np.zeros(1, dtype=np.float64)
         self.time_interval = None
         self.sgrid_metadata = None
+        self._lookup = None
+        self._needs_cgrid_geom = False
         self.spec = GridSpec(
-            axes=(), spherical=self._mesh.is_spherical(), deg2m=self.deg2m,
+            axes=(), curvilinear=False, spherical=self._mesh.is_spherical(), deg2m=self.deg2m,
             xdim=0, ydim=0, zdim=0, lon_uniform=None, lat_uniform=None,
             depth_uniform=None, time_uniform=None,
         )
@@ -178,6 +186,9 @@ class FieldSet:
             if field.grid not in self._gridset:
                 self._gridset.append(field.grid)
             field.igrid = self._gridset.index(field.grid)
+        if isinstance(field, VectorField) and isinstance(field.interp_method, CGrid_Velocity):
+            # the grid's device arrays then carry the per-cell C-grid geometry
+            field.grid._needs_cgrid_geom = True
         field._fieldset = self
         field._registered_name = name
         self._fields[name] = field
@@ -207,11 +218,12 @@ class FieldSet:
         fill_value: float = 0.0,
         device=None,
     ) -> "FieldSet":
-        """Build a FieldSet from an SGRID-convention A-grid dataset.
+        """Build a FieldSet from an SGRID-convention dataset.
 
         Mirrors reference FieldSet.from_sgrid_conventions: mesh
         autodetection from coordinate units, time-axis normalization,
-        vector-field discovery, NaN -> 0 fill, XLinear default scalar
+        vector-field discovery (``CGrid_Velocity`` when U and V sit on
+        different dims), NaN -> 0 fill, XLinear default scalar
         interpolation. ``device`` defaults to ``cuda``.
         """
         metadata = sgrid.parse_sgrid_metadata(ds)
@@ -235,11 +247,6 @@ class FieldSet:
             for c in components:
                 if c not in data_vars:
                     raise ValueError(f"Vector field {vname!r} component {c!r} not in dataset.")
-            if not _is_agrid(ds, components[0], components[1]):
-                raise NotImplementedError(
-                    f"Vector field {vname!r} is staggered (CGrid_Velocity): it belongs to "
-                    f"{LATER_SLICE_CURVILINEAR}."
-                )
 
         grid = XGrid(ds, mesh)
         fs = cls(device=device)
@@ -250,10 +257,10 @@ class FieldSet:
             scalar_fields[str(varname)] = f
             fs.add_field(f)
         for vname, components in vector_fields.items():
-            fs.add_field(
-                VectorField(vname, *[scalar_fields[c] for c in components],
-                            interp_method=XLinear_Velocity())
-            )
+            agrid = _is_agrid(ds, components[0], components[1])
+            interp = XLinear_Velocity() if agrid else CGrid_Velocity()
+            fs.add_field(VectorField(vname, *[scalar_fields[c] for c in components],
+                                     interp_method=interp))
         return fs
 
     @classmethod
@@ -277,16 +284,23 @@ class FieldSet:
         }
         for name, f in self._fields.items():
             if isinstance(f, Field):
-                data = f.data.astype(np.float32) if f.data.dtype.kind == "f" else f.data
+                data = f.data.astype(np.float32, copy=False) if f.data.dtype.kind == "f" else f.data
                 farrays["fields"][name] = torch.as_tensor(
                     np.ascontiguousarray(data), device=self.device
                 )
+        from parcels_tpu_torch.ops.stagecache import attach_derived_tables
+
+        attach_derived_tables(self, farrays)
         object.__setattr__(self, "_device_cache", farrays)
         return farrays
 
     def build_views(self, farrays: dict) -> "FieldSetView":
         """Device field views over ``farrays`` (as ``device_arrays`` returns)."""
+        from parcels_tpu_torch.ops.stagecache import soa_cache_owner
+
         grid_views = [g.make_view(farrays["grids"][i]) for i, g in enumerate(self._gridset)]
+        celltables = farrays.get("celltables", {})
+        sc_owner, _ = soa_cache_owner(self)
         views: dict[str, object] = {}
         for name, f in self._fields.items():
             if isinstance(f, Field):
@@ -299,7 +313,10 @@ class FieldSet:
                 views[name] = VectorFieldView(
                     name, views[f.U.name], views[f.V.name],
                     views[f.W.name] if f.W is not None else None, f.interp_method,
+                    sc_owner=name == sc_owner,
                 )
+                if f.igrid in celltables:
+                    views[name]._cell_table = celltables[f.igrid]
         return FieldSetView(views, dict(self.context))
 
     def eval(self, name: str, t, z, y, x):

@@ -50,6 +50,10 @@ class Particles:
             mask = mask[:, None]
         d[name] = torch.where(mask, value, old)
 
+    def _get_ei(self, igrid: int):
+        """Cached element index of one grid (curvilinear warm start)."""
+        return self._data["ei"][:, igrid]
+
     def _set_ei(self, igrid: int, values):
         """Masked update of the cached element index for one grid."""
         ei = self._data["ei"]

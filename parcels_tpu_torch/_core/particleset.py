@@ -36,7 +36,6 @@ __all__ = ["ParticleSet", "state_from_numpy"]
 
 #: engine modes of the JAX package that belong to later slices of the port
 _LATER_SLICE_OPTIONS = {
-    "stagecache": "the curvilinear C-grid slice",
     "colgather": "the remaining-interpolators slice",
     "uxcol": "the unstructured-mesh slice",
     "uxcache": "the unstructured-mesh slice",
@@ -149,9 +148,10 @@ class ParticleSet:
         return f"ParticleSet(n={len(self)}, device={self.device})"
 
     def __getattr__(self, name):
-        """Active lanes of a particle variable, as numpy."""
+        """Active lanes of a particle variable, as numpy. The engine's
+        persistent-cache columns (``_sc_*``) are not particle variables."""
         data = self.__dict__.get("_data")
-        if data is not None and name in data:
+        if data is not None and name in data and not name.startswith("_sc_"):
             arr = _host(data[name])
             active = _host(data["_active"])
             if arr.ndim >= 1 and arr.shape[0] == active.shape[0]:
@@ -246,6 +246,13 @@ class ParticleSet:
         z_occ = self._set_sampler_occupancy_hint()
         # reference kernel.py:190: every execute() call requeues all active lanes
         d["state"] = torch.where(d["_active"], int(StatusCode.Evaluate), d["state"]).to(torch.int32)
+        # persistent C-grid cell cache (ops/stagecache.py): inject the SoA
+        # columns before padding, so padded lanes get invalid keys too
+        from parcels_tpu_torch.ops import stagecache
+
+        sc_ok, sc_w = stagecache.soa_cache_applicable(self.fieldset)
+        if sc_ok and stagecache.SC_KEY not in d:
+            d.update(stagecache.make_soa_cache(d["state"].shape[0], sc_w, self.device))
 
         self._pad_capacity(DEFAULT_BLOCK_SIZE)
         if _sort_mode_enabled(self.fieldset) and not bool(self._data["ei"].any()):
@@ -420,8 +427,10 @@ class ParticleSet:
             if k == "_rng":
                 out[k] = v
                 continue
-            # -1 sentinel: padded lanes must never look like live ids
-            fill = torch.full((pad,) + tuple(v.shape[1:]), -1 if k == "particle_id" else 0,
+            # -1 sentinels: padded lanes must never look like live ids or
+            # valid persistent-cache cells (cell 0 is real)
+            fill = torch.full((pad,) + tuple(v.shape[1:]),
+                              -1 if k in ("particle_id", "_sc_key") else 0,
                               dtype=v.dtype, device=v.device)
             out[k] = torch.cat([v, fill])
         out["_active"][n:] = False

@@ -29,6 +29,7 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 
 #: kernel name -> (source file, C launcher, launcher argtypes)
 KERNEL_SOURCES = {
@@ -41,6 +42,11 @@ KERNEL_SOURCES = {
         "slab_sample.cu",
         "slab_sample_launch",
         [_P, _I, _I, _I, _I] + [_P] * 10 + [_P] * 5 + [_I] * 7 + [_P],
+    ),
+    "fused_rk4": (
+        "fused_rk4.cu",
+        "fused_rk4_launch",
+        [_P, _P, _P, _P, ctypes.c_longlong, _F, _F, _F, _P],
     ),
 }
 

@@ -16,6 +16,8 @@ def test_import_leaves_jax_out():
     code = (
         "import sys; import parcels_tpu_torch, parcels_tpu_torch.datasets; "
         "import parcels_tpu_torch.ops.binned_sample, parcels_tpu_torch.ops._build; "
+        "import parcels_tpu_torch.ops.stagecache, parcels_tpu_torch.ops.fused_rk4; "
+        "import parcels_tpu_torch.convert, parcels_tpu_torch.datasets.moi; "
         "bad = [m for m in ('jax', 'parcels_tpu') if m in sys.modules]; "
         "assert not bad, bad"
     )

@@ -232,27 +232,12 @@ def test_default_device_is_cuda_or_raises(monkeypatch):
 
 
 def _later_slice_cases():
-    from parcels_tpu.datasets import curvilinear_rotated_dataset, peninsula_dataset
-
-    def cgrid():
-        ds = peninsula_dataset(grid_type="C")
-        return tp.FieldSet.from_sgrid_conventions(ds, mesh="flat", device="cpu")
-
-    def curvilinear():
-        return tp.FieldSet.from_sgrid_conventions(curvilinear_rotated_dataset(), mesh="flat",
-                                                  device="cpu")
-
     def window():
         _, tfs = _fieldsets((4, 1, 8, 8))
         tfs.set_time_window(2)
 
     def ugrid():
         tp.FieldSet.from_ugrid_conventions(None)
-
-    def stagecache():
-        _, tfs = _fieldsets((2, 1, 8, 8))
-        _run(tfs, "torch", tp.AdvectionEE, dict(x=[2000.0], y=[2000.0], t=[0.0]),
-             options=tp.EngineOptions(stagecache="force"))
 
     def particle_mesh():
         from parcels_tpu_torch.parallel import ParticleMesh
@@ -265,14 +250,10 @@ def _later_slice_cases():
         _, tfs = _fieldsets((2, 1, 8, 8))
         YBandDomain(tfs, halo=2)
 
-    return {"cgrid": cgrid, "curvilinear": curvilinear, "window": window, "ugrid": ugrid,
-            "stagecache": stagecache, "particle_mesh": particle_mesh, "domain": domain}
+    return {"window": window, "ugrid": ugrid, "particle_mesh": particle_mesh, "domain": domain}
 
 
-@pytest.mark.parametrize(
-    "case",
-    ["cgrid", "curvilinear", "window", "ugrid", "stagecache", "particle_mesh", "domain"],
-)
+@pytest.mark.parametrize("case", ["window", "ugrid", "particle_mesh", "domain"])
 def test_later_slice_features_raise(case):
     with pytest.raises(NotImplementedError):
         _later_slice_cases()[case]()
