@@ -37,7 +37,23 @@ counter is set to 0 just before a path runs and read just after):
    engine advancing the same warm batch 25 steps;
 10. card against CPU: phase 8 at 64K particles (stage cache forced on the
     CPU), and the rectilinear C-grid peninsula, which launches K1 on the
-    card.
+    card;
+11. K4 (fused flat-mesh RK4 step) against its plain version at the JAX
+    micro-benchmark's size, 10M lanes floored to 2048 (9,998,336): its
+    unit cells mixed with lanes that reach every branch, NaN positions and
+    NaN or infinite t; then the micro-benchmark itself (K4's path);
+12. BASELINE config 3 end to end: quickstart 03 at 1M particles
+    (Euler-Maruyama advection-diffusion with out-of-bounds deletion, Kh
+    100 m^2/s, dt 10 min for 24 h) with its survival and spread asserts (K1);
+13. Euler-Maruyama on 4(b)'s field with 2M particles, 20 steps (K2 under an
+    RNG kernel); with Kh = 0 it equals AdvectionEE;
+14. card against CPU for the kernels of this slice: EM and M1 with Kh = 0,
+    XFreeslip/XPartialslip on 4(a)'s field with a land band (K1), the
+    analytical scheme on a 3-D C-grid with W (and its closed form), the
+    CROCO sigma-grid RK2 on an idealized CROCO set, and config 3's
+    moments at 64K particles; the analytical scheme on the Stommel gyre is
+    held on each device to the JAX test's invariants (P conserved, the
+    particles moved) and the card-CPU difference is printed.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Field data and
@@ -352,10 +368,12 @@ def k3_phase(torch, fs, n, seed=11, dt=600.0):
 
 def _wrappers():
     from parcels_tpu_torch.ops.binned_sample import slab_sample
+    from parcels_tpu_torch.ops.flat_rk4 import flat_rk4_step
     from parcels_tpu_torch.ops.fused_rk4 import fused_rk4_step
     from parcels_tpu_torch.ops.interp_kernels import fold_sample
 
-    return {"fold_sample": fold_sample, "slab_sample": slab_sample, "fused_rk4": fused_rk4_step}
+    return {"fold_sample": fold_sample, "slab_sample": slab_sample, "fused_rk4": fused_rk4_step,
+            "flat_rk4": flat_rk4_step}
 
 
 def counts():
@@ -502,6 +520,382 @@ def run_path(torch, tp, fs, n, kernel, runtime_s, seed, zrange=None):
     if int((pset.state >= tp.StatusCode.Error).sum()):
         raise AssertionError("particles ended in an error state")
     return pset, launches, pset.last_run_stats
+
+
+#: f32 operations per lane of one K4 step, counted as K3's are: per stage
+#: about 114 adds/multiplies/compares/selects, 6 divisions and 5 square
+#: roots, plus about 20 for the RK4 combination
+K4_OPS_PER_LANE = 4 * (114 + 6 + 5) + 20
+#: the JAX micro-benchmark's default N = 10,000,000 floored to its 2048-lane block
+K4_LANES = 10_000_000 // 2048 * 2048
+
+
+def k4_phase(torch):
+    """Phase 11: K4 against its plain version, then the micro-benchmark."""
+    from parcels_tpu_torch.ops import _build
+    from parcels_tpu_torch.ops import flat_rk4 as fr
+
+    n = K4_LANES
+    row, uv, scal = fr.synthetic_inputs(n, seed=0, device="cuda", branches=True)
+    out = fr.flat_rk4_step(row, uv, scal)
+    torch.cuda.synchronize()
+    ref = fr.flat_rk4_step_plain(row, uv, scal)
+    if not torch.equal(torch.isnan(out), torch.isnan(ref)):
+        raise AssertionError("K4: NaN lanes differ from the plain version")
+    fin = ~torch.isnan(ref[:2])
+    err = float((out[:2] - ref[:2]).abs()[fin].max())
+    bitwise = int(((out == ref) | (torch.isnan(out) & torch.isnan(ref))).all(dim=0).sum())
+    nan_lanes = int(torch.isnan(ref[0]).sum())
+    if bool((out[2:] != 0).any()):
+        raise AssertionError("K4: output rows 2-7 are not zero")
+    # acceptance: within 1e-5 (the target, equal rounding order, is bit for bit)
+    if err > 1e-5:
+        raise AssertionError(f"K4 disagrees with its plain version: max abs err {err}")
+    del ref
+    ms = cuda_ms(torch, lambda: fr.flat_rk4_step(row, uv, scal))
+    plain_ms = cuda_ms(torch, lambda: fr.flat_rk4_step_plain(row, uv, scal), reps=3, warmup=1)
+    bound_ms, bound_by = bound(n * fr.BYTES_PER_LANE, n * K4_OPS_PER_LANE)
+    ptxas = [ln.strip() for ln in _build.BUILD_LOG.get("flat_rk4", "").splitlines()
+             if "registers" in ln or "stack frame" in ln]
+    log(f"[K4] lanes {n}: max abs err dx/dy {err:.3g}, bitwise-equal lanes {bitwise} of {n} "
+        f"({nan_lanes} NaN lanes); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}, {fr.BYTES_PER_LANE} B and {K4_OPS_PER_LANE} ops a lane; "
+        f"the JAX script's docstring counts 224 B, "
+        f"{1e3 * n * 224 / HBM_BYTES_PER_S:.4f} ms); ptxas {ptxas}; no single library call "
+        f"computes this step")
+    del row, uv, scal, out
+    torch.cuda.empty_cache()
+    zero_counts()
+    mb = fr.micro_bench(n)
+    launches = counts()["flat_rk4"]
+    log(f"[K4 micro-bench] unit cells, {mb['n']} lanes: kernel {mb['cuda_ms']:.4f} ms "
+        f"({mb['n'] / mb['cuda_ms'] / 1e3:.1f} M lane-steps/s), plain {mb['plain_ms']:.4f} ms, "
+        f"max abs err {mb['max_abs_err']:.3g}; launches {launches}")
+    if launches == 0 or mb["max_abs_err"] > 1e-5:
+        raise AssertionError("K4 micro-benchmark: no launch or disagreement")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None), launches
+
+
+#: quickstart 03 (BASELINE config 3): Kh, the particles' start x and the day
+KH3, X3, DAY = 100.0, 9.97e5, 86400.0
+
+
+def delete_oob(particles, fieldset):
+    """Quickstart 03's recovery kernel: out-of-bounds particles are deleted."""
+    import torch
+
+    from parcels_tpu_torch import StatusCode
+
+    particles.state = torch.where(particles.state == StatusCode.ErrorOutOfBounds,
+                                  StatusCode.Delete, particles.state)
+
+
+def add_diffusivity(fs, kh, dres):
+    fs.add_constant_field("Kh_zonal", kh, mesh="flat")
+    fs.add_constant_field("Kh_meridional", kh, mesh="flat")
+    fs.add_context("dres", dres)
+    return fs
+
+
+def run_config3(tp, device, n, seed=7):
+    """Quickstart 03 at ``n`` particles on ``device``; checks its asserts."""
+    from parcels_tpu_torch.datasets import simple_UV_dataset
+
+    ds = simple_UV_dataset(dims=(2, 2, 32, 32), mesh="flat")  # +-1e6 m flat box
+    fs = add_diffusivity(tp.FieldSet.from_sgrid_conventions(ds, mesh="flat", device=device),
+                         KH3, 10000.0)
+    pset = tp.ParticleSet(fs, x=np.full(n, X3), y=np.zeros(n), t=np.zeros(n), seed=seed)
+    pset.execute([tp.AdvectionDiffusionEM, delete_oob], dt=np.timedelta64(10, "m"),
+                 runtime=np.timedelta64(24, "h"))
+    survived = len(pset) / n
+    y = pset.y
+    ratio = float(y.std()) / np.sqrt(2 * KH3 * DAY)
+    if not (np.isfinite(pset.x).all() and np.isfinite(y).all()):
+        raise AssertionError("config 3: non-finite positions")
+    if not (0.2 < survived < 0.8 and 0.7 < ratio < 1.3):
+        raise AssertionError(f"config 3: survival share {survived}, y-spread / sqrt(2Kt) {ratio}")
+    return pset, dict(survived=survived, spread_ratio=ratio, y_mean=float(y.mean()))
+
+
+def land_band(ds, rows=slice(100, 112)):
+    """Zero U and V over a band of rows: land for the slip interpolators."""
+    for c in ("U", "V"):
+        ds[c].values[:, :, rows, :] = 0.0
+    return ds
+
+
+def sample_p(torch, fs, x, y):
+    """The Stommel streamfunction P at (x, y) on the fieldset's device."""
+    fsv = fs.build_views(fs.device_arrays())
+    pos = [torch.as_tensor(np.asarray(a, np.float32), device=fs.device) for a in (y, x)]
+    zero = torch.zeros_like(pos[0])
+    return fsv.P.eval(zero, zero, *pos).cpu().numpy()
+
+
+def stommel_fieldset(tp, device):
+    from parcels_tpu_torch.datasets import stommel_gyre_dataset
+
+    return tp.FieldSet.from_sgrid_conventions(stommel_gyre_dataset(grid_type="C"), mesh="flat",
+                                              device=device)
+
+
+def cgrid_w_fieldset(tp, device, u0=0.05, w0=0.002):
+    """A 3-D flat C-grid with uniform (u, 0, w) (the JAX package's
+    test_analytical_advection_3d_with_w field)."""
+    from parcels_tpu_torch import _sgrid as sgrid
+    from parcels_tpu_torch import xrlite as xr
+
+    xdim, ydim, nz = 30, 20, 6
+    shape = (2, nz, ydim, xdim)
+    ds = xr.Dataset(
+        {"U": (["time", "depth", "YG", "XC"], np.full(shape, u0, np.float32)),
+         "V": (["time", "depth", "YC", "XG"], np.zeros(shape, np.float32)),
+         "W": (["time", "depth", "YC", "XC"], np.full(shape, w0, np.float32))},
+        coords={
+            "time": (["time"], np.array([np.timedelta64(0, "s"), np.timedelta64(10, "D")]),
+                     {"axis": "T"}),
+            "depth": (["depth"], np.linspace(0.0, 120.0, nz), {"axis": "Z"}),
+            "YC": (["YC"], np.arange(ydim) - 0.5, {"axis": "Y"}),
+            "YG": (["YG"], np.arange(ydim, dtype=np.float64), {"axis": "Y"}),
+            "XC": (["XC"], np.arange(xdim) - 0.5, {"axis": "X"}),
+            "XG": (["XG"], np.arange(xdim, dtype=np.float64), {"axis": "X"}),
+            "lat": (["YG"], np.arange(ydim) * 1000.0, {"axis": "Y", "units": "m"}),
+            "lon": (["XG"], np.arange(xdim) * 1000.0, {"axis": "X", "units": "m"}),
+        },
+    )
+    meta = sgrid.SGrid2DMetadata(
+        node_dimensions=("XG", "YG"), node_coordinates=("lon", "lat"),
+        face_dimensions=(sgrid.FaceNodePadding("XC", "XG", sgrid.Padding.LOW),
+                         sgrid.FaceNodePadding("YC", "YG", sgrid.Padding.LOW)),
+        vertical_dimensions=(sgrid.FaceNodePadding("ZC", "depth", sgrid.Padding.BOTH),),
+    )
+    return tp.FieldSet.from_sgrid_conventions(sgrid.attach_sgrid_metadata(ds, meta), mesh="flat",
+                                              device=device)
+
+
+def croco_fieldset(tp, device, n=8, nz=6, hc=20.0):
+    """The idealized CROCO set of the JAX package's sigma-grid tests, with a
+    meridional flow over a sloping bottom under a free surface."""
+    from parcels_tpu_torch import xrlite as xr
+
+    extent = 200e3
+    x_rho = np.broadcast_to(np.linspace(0, extent, n), (n, n)).copy()
+    y_rho = np.broadcast_to(np.linspace(0, extent, n)[:, None], (n, n)).copy()
+    s_w = np.linspace(-1.0, 0.0, nz)
+    h = np.broadcast_to(np.linspace(80.0, 160.0, n)[:, None], (n, n)).astype(np.float32).copy()
+    fields = {
+        "U": xr.DataArray(np.full((2, nz, n, n - 1), 1.0, np.float32),
+                          dims=("time", "s_rho", "eta_rho", "xi_u"), name="U"),
+        "V": xr.DataArray(np.full((2, nz, n - 1, n), 0.3, np.float32),
+                          dims=("time", "s_rho", "eta_v", "xi_rho"), name="V"),
+        "W": xr.DataArray(np.zeros((2, nz, n, n), np.float32),
+                          dims=("time", "s_w", "eta_rho", "xi_rho"), name="W"),
+        "h": xr.DataArray(h, dims=("eta_rho", "xi_rho"), name="h"),
+        "zeta": xr.DataArray(np.full((2, n, n), 0.4, np.float32),
+                             dims=("time", "eta_rho", "xi_rho"), name="zeta"),
+        "Cs_w": xr.DataArray((s_w**3).astype(np.float32), dims=("s_w",), name="Cs_w"),
+        "omega": xr.DataArray(np.full((2, nz, n, n), 3.3, np.float32),
+                              dims=("time", "s_w", "eta_rho", "xi_rho"), name="omega"),
+    }
+    coords = xr.Dataset(coords={
+        "time": (("time",), np.arange(2) * 20000.0, {"units": "seconds"}),
+        "x_rho": (("eta_rho", "xi_rho"), x_rho, {"units": "m"}),
+        "y_rho": (("eta_rho", "xi_rho"), y_rho, {"units": "m"}),
+        "s_w": (("s_w",), s_w),
+    })
+    fs = tp.FieldSet.from_sgrid_conventions(tp.convert.croco_to_sgrid(fields=fields, coords=coords),
+                                            device=device)
+    fs.add_context("hc", hc)
+    return fs
+
+
+def card_and_cpu(tp, build, run):
+    """``run(build(device))`` on the card, then on the CPU (stage cache
+    forced there, as the card runs it); returns both particle sets."""
+    a = run(build("cuda"))
+    os.environ["PARCELS_TPU_STAGECACHE"] = "force"
+    try:
+        b = run(build("cpu"))
+    finally:
+        del os.environ["PARCELS_TPU_STAGECACHE"]
+    return a, b
+
+
+def assert_same(name, a, b, rtol=1e-5, atol=0.0, vars_=("x", "y", "z")):
+    for var in vars_:
+        np.testing.assert_allclose(getattr(a, var), getattr(b, var), rtol=rtol, atol=atol,
+                                   err_msg=f"{name}: {var}")
+    np.testing.assert_array_equal(a.state, b.state, err_msg=f"{name}: states")
+    return max(float(np.abs(getattr(a, v) - getattr(b, v)).max()) for v in vars_)
+
+
+#: particles of phase 12 (BASELINE config 3), phase 13 and the card-against-CPU runs
+CONFIG3_LANES, EM_LANES, CMP_LANES = 1_000_000, 2_000_000, 1 << 16
+
+
+def config3_phase(tp):
+    """Phase 12: quickstart 03 at config 3's particle count; K1 launches."""
+    zero_counts()
+    pset, m = run_config3(tp, "cuda", CONFIG3_LANES)
+    launches, st = counts(), pset.last_run_stats
+    log(f"[config3] quickstart 03, {CONFIG3_LANES} particles, AdvectionDiffusionEM + DeleteOOB, "
+        f"Kh 100 m^2/s, dt 10 min for 24 h: survival share {m['survived']:.4f}, y-spread / "
+        f"sqrt(2Kt) {m['spread_ratio']:.4f}; particle_steps_per_s {st['particle_steps_per_s']} "
+        f"wall_s {st['wall_s']}; launches {launches}")
+    if launches["fold_sample"] == 0:
+        raise AssertionError("K1 was not launched on the config-3 path")
+    return launches["fold_sample"]
+
+
+def fs_b_with(tp, ds_b, kh, device="cuda"):
+    """4(b)'s fieldset with constant diffusivities ``kh`` (dres 2 km, about
+    the grid spacing)."""
+    return add_diffusivity(tp.FieldSet.from_sgrid_conventions(ds_b, mesh="flat", device=device),
+                           kh, 2000.0)
+
+
+#: 4(b)'s runs: 20 steps of 60 s, particles at 10-490 m
+B_RUN = dict(runtime_s=20 * 60, zrange=(10.0, 490.0))
+
+
+def em_phase(torch, tp, ds_b):
+    """Phase 13: Euler-Maruyama on 4(b)'s field (K2 under an RNG kernel);
+    with Kh = 0 it equals AdvectionEE."""
+    _, launches, st = run_path(torch, tp, fs_b_with(tp, ds_b, KH3), EM_LANES,
+                               tp.AdvectionDiffusionEM, seed=6, **B_RUN)
+    log(f"[e2e b EM] (2,50,500,500) {EM_LANES} particles AdvectionDiffusionEM Kh 100 m^2/s dt "
+        f"60 s 20 steps: launches {launches}; particle_steps_per_s {st['particle_steps_per_s']} "
+        f"wall_s {st['wall_s']}")
+    if launches["slab_sample"] == 0:
+        raise AssertionError("K2 was not launched under AdvectionDiffusionEM")
+    fs0 = fs_b_with(tp, ds_b, 0.0)
+    em0 = run_path(torch, tp, fs0, EM_LANES, tp.AdvectionDiffusionEM, seed=6, **B_RUN)[0]
+    ee = run_path(torch, tp, fs0, EM_LANES, tp.AdvectionEE, seed=6, **B_RUN)[0]
+    d = assert_same("EM with Kh = 0 against AdvectionEE", em0, ee, rtol=1e-6)
+    log(f"[e2e b EM] Kh = 0 against AdvectionEE, {EM_LANES} particles: max |difference| {d:.3g} m")
+    del fs0, em0, ee
+    torch.cuda.empty_cache()
+    return launches["slab_sample"]
+
+
+def recorder(torch, rec):
+    """A kernel that appends the first three lanes' (x, y) to ``rec``."""
+    def Record(particles, fieldset):  # noqa: N802
+        rec.append(torch.stack([particles.x, particles.y])[:, :3].cpu().numpy())
+    return Record
+
+
+def analytical_run(tp, fs, seeds, dt_h, hours):
+    """AdvectionAnalytical from ``seeds`` (x, y and z)."""
+    pset = tp.ParticleSet(fs, t=np.zeros(len(seeds["x"])), **seeds)
+    pset.execute(tp.AdvectionAnalytical, dt=np.timedelta64(dt_h, "h"),
+                 runtime=np.timedelta64(hours, "h"))
+    return pset
+
+
+#: the JAX package's Stommel seeds (tests/test_advection.py). Random seeds
+#: in the gyre can stall: a lane within one f32 step of a face takes a
+#: transit of a few seconds that leaves its position unchanged, and repeats
+#: it to the end of the run, one engine iteration each time (the JAX
+#: scheme's f32 tolerance, ported as it is)
+STOMMEL_SEEDS = dict(x=np.array([3e6, 4e6, 5e6]), y=np.array([3e6, 5e6, 7e6]))
+
+
+def croco_run(tp, fs, n=1024):
+    """RK2 on the CROCO sigma grid with omega sampling, 100 steps of 100 s."""
+    rng = np.random.default_rng(11)
+    pclass = tp.Particle.add_variable(tp.Variable("omega"))
+    pset = tp.ParticleSet(fs, pclass=pclass, x=rng.uniform(20e3, 120e3, n),
+                          y=rng.uniform(20e3, 120e3, n), z=rng.uniform(-70.0, -5.0, n),
+                          t=np.zeros(n))
+    pset.execute([tp.AdvectionRK2_3D_CROCO, tp.SampleOmegaCroco],
+                 runtime=np.timedelta64(10_000, "s"), dt=np.timedelta64(100, "s"))
+    return pset
+
+
+def card_cpu_phase(torch, tp, ds_b):
+    """Phase 14: this slice's kernels on the card against the CPU; returns
+    the K1 launches of the slip runs."""
+    n = CMP_LANES
+    for kern in (tp.AdvectionDiffusionEM, tp.AdvectionDiffusionM1):
+        a, b = card_and_cpu(tp, lambda d: fs_b_with(tp, ds_b, 0.0, d),
+                            lambda fs, k=kern: run_path(torch, tp, fs, n, k, seed=7, **B_RUN)[0])
+        log(f"[card vs cpu] {kern.__name__} Kh = 0, {n} particles, 20 steps on 4(b)'s field: "
+            f"max |difference| {assert_same(kern.__name__, a, b):.3g} m")
+
+    ds_s = land_band(flat_dataset((24, 1, 256, 1000), extent=(255e3, 999e3), seed=3))
+    k1_slip = 0
+    for interp in (tp.XFreeslip, tp.XPartialslip):
+        runs, launches = {}, {}
+        for d in ("cuda", "cpu"):
+            fs = tp.FieldSet.from_sgrid_conventions(ds_s, mesh="flat", device=d)
+            fs.fields["UV"].interp_method = interp()
+            fs._invalidate_caches()
+            runs[d], launches[d], _ = run_path(torch, tp, fs, n, tp.AdvectionRK4, 1200, seed=9)
+        k1 = launches["cuda"]["fold_sample"]
+        if k1 == 0:
+            raise AssertionError(f"K1 was not launched under {interp.__name__}")
+        k1_slip += k1
+        log(f"[card vs cpu] {interp.__name__} on 4(a)'s field with a land band, {n} particles, "
+            f"20 RK4 steps: max |difference| "
+            f"{assert_same(interp.__name__, runs['cuda'], runs['cpu']):.3g} m; K1 launches {k1}")
+
+    # the Stommel gyre: the JAX test's asserts on each device (the
+    # streamfunction P is conserved along the trajectories, the particles
+    # moved). Card against CPU is reported, not held: a lane that ends a
+    # jump within one f32 step of a face stays on it or not with the last
+    # bit of exp and log, as the JAX package's jitted and eager runs differ.
+    # Each jump's start is recorded to show where the devices part
+    st, jumps = {}, {}
+    for d in ("cuda", "cpu"):
+        fs = stommel_fieldset(tp, d)
+        jumps[d] = []
+        pset = tp.ParticleSet(fs, t=np.zeros(3), **STOMMEL_SEEDS)
+        pset.execute([recorder(torch, jumps[d]), tp.AdvectionAnalytical], dt=np.timedelta64(6, "h"),
+                     runtime=np.timedelta64(48, "h"))
+        p0 = sample_p(torch, fs, STOMMEL_SEEDS["x"], STOMMEL_SEEDS["y"])
+        p1 = sample_p(torch, fs, pset.x, pset.y)
+        if not np.allclose(p1, p0, rtol=2e-2) or np.allclose(pset.x, STOMMEL_SEEDS["x"], atol=1.0):
+            raise AssertionError(f"AdvectionAnalytical on the Stommel gyre ({d}): P {p0} -> {p1}, "
+                                 f"x {STOMMEL_SEEDS['x']} -> {pset.x}")
+        st[d] = (pset, float(np.abs(p1 - p0).max() / np.abs(p0).max()))
+    (a, ra), (b, rb) = st["cuda"], st["cpu"]
+    parted = next(((k, np.abs(u - v).max(axis=0).tolist()) for k, (u, v) in
+                   enumerate(zip(jumps["cuda"], jumps["cpu"])) if not np.array_equal(u, v)), None)
+    log(f"[card vs cpu] AdvectionAnalytical on the Stommel gyre, 3 particles, 8 steps of 6 h: "
+        f"P conserved to {ra:.3g} (card), {rb:.3g} (CPU); card x {a.x} y {a.y}, CPU x {b.x} "
+        f"y {b.y}; states equal {bool(np.array_equal(a.state, b.state))}; jumps card "
+        f"{len(jumps['cuda'])}, CPU {len(jumps['cpu'])}; first jump starting apart (index, "
+        f"max |dx|,|dy| per lane): {parted}")
+
+    # a 3-D C-grid with uniform (u, 0, w): card against CPU to 1e-4 of the
+    # extent (the port-against-JAX tests' tolerance), and the closed form
+    rng = np.random.default_rng(10)
+    w_seeds = dict(x=rng.uniform(1500.0, 5000.0, 1024), y=rng.uniform(3000.0, 15000.0, 1024),
+                   z=rng.uniform(5.0, 40.0, 1024))
+    a, b = card_and_cpu(tp, lambda d: cgrid_w_fieldset(tp, d),
+                        lambda fs: analytical_run(tp, fs, w_seeds, 1, 6))
+    dmax = assert_same("AdvectionAnalytical 3-D with W", a, b, rtol=0.0, atol=3.0)
+    np.testing.assert_allclose(a.x, w_seeds["x"] + 0.05 * 6 * 3600, rtol=1e-4)
+    np.testing.assert_allclose(a.z, w_seeds["z"] + 0.002 * 6 * 3600, rtol=1e-3)
+    log(f"[card vs cpu] AdvectionAnalytical on a 3-D C-grid with W, 1024 particles, 6 steps: "
+        f"max |difference| {dmax:.3g} m; closed form holds on the card")
+
+    a, b = card_and_cpu(tp, lambda d: croco_fieldset(tp, d), lambda fs: croco_run(tp, fs))
+    d = assert_same("AdvectionRK2_3D_CROCO", a, b, vars_=("x", "y", "z", "omega"))
+    log(f"[card vs cpu] AdvectionRK2_3D_CROCO + SampleOmegaCroco on the idealized CROCO set, "
+        f"{len(a)} particles, 100 steps: max |difference| {d:.3g}")
+
+    moments = {d: run_config3(tp, d, n)[1] for d in ("cuda", "cpu")}
+    # both meet the quickstart's asserts (run_config3); the card's and the
+    # CPU's independent streams agree within 0.02 on both moments (about 7
+    # standard errors at 64K particles)
+    for k in ("survived", "spread_ratio"):
+        if abs(moments["cuda"][k] - moments["cpu"][k]) > 0.02:
+            raise AssertionError(f"config 3 at {n}: card and CPU {k} differ: {moments}")
+    log(f"[card vs cpu] config 3 at {n} particles (Kh 100 m^2/s): {moments}")
+    return k1_slip
 
 
 def main() -> int:
@@ -666,16 +1060,32 @@ def main() -> int:
     np.testing.assert_array_equal(runs["cuda"].state, runs["cpu"].state)
     log(f"[peninsula cgrid] 4096 particles, 60 RK4 steps, card vs CPU within rtol 1e-5; "
         f"launches {lp}")
+    del fs5
+    torch.cuda.empty_cache()
+
+    # 11: K4 against its plain version, then its micro-benchmark path
+    k4, l11 = k4_phase(torch)
+
+    # 12-14: config 3, Euler-Maruyama under K2, card against CPU
+    l12 = config3_phase(tp)
+    l13 = em_phase(torch, tp, ds_b)
+    l14 = card_cpu_phase(torch, tp, ds_b)
 
     kernels = [
         dict(name="fold_sample", route="cuda", source="parcels_tpu_torch/csrc/fold_sample.cu",
              replaces="parcels_tpu/ops/interp_kernels.py:77", launches=la["fold_sample"],
-             launches_by_path={"e2e_a": la["fold_sample"], "cgrid_peninsula": lp["fold_sample"]},
+             launches_by_path={"e2e_a": la["fold_sample"], "cgrid_peninsula": lp["fold_sample"],
+                               "config3": l12, "slip": l14},
              **k1),
         dict(name="slab_sample", route="cuda", source="parcels_tpu_torch/csrc/slab_sample.cu",
-             replaces="parcels_tpu/ops/binned_sample.py:489", launches=lb["slab_sample"], **k2),
+             replaces="parcels_tpu/ops/binned_sample.py:489", launches=lb["slab_sample"],
+             launches_by_path={"e2e_b": lb["slab_sample"], "e2e_b_em": l13}, **k2),
         dict(name="fused_rk4", route="cuda", source="parcels_tpu_torch/csrc/fused_rk4.cu",
-             replaces="scripts/bench_fused_rk4.py:134", launches=k9["launches"], **k3),
+             replaces="scripts/bench_fused_rk4.py:134", launches=k9["launches"],
+             launches_by_path={"k3_path": k9["launches"]}, **k3),
+        dict(name="flat_rk4", route="cuda", source="parcels_tpu_torch/csrc/flat_rk4.cu",
+             replaces="scripts/micro_pallas_rk4.py:129", launches=l11,
+             launches_by_path={"k4_micro_bench": l11}, **k4),
     ]
     log(json.dumps({"kernels": kernels}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -2,9 +2,10 @@
 
 Same public names as ``parcels_tpu`` for what the port has landed so far:
 structured rectilinear and curvilinear fieldsets on A- and C-grids (with
-the NEMO converter ``convert.nemo_to_sgrid`` and the C-grid stage cache),
-``ParticleSet.execute`` with the advection kernels, and Parquet trajectory
-output. Field sampling runs
+the NEMO and CROCO converters ``convert.nemo_to_sgrid`` and
+``convert.croco_to_sgrid`` and the C-grid stage cache), the structured
+interpolators, ``ParticleSet.execute`` with the advection, advection-diffusion,
+analytical and CROCO sigma-grid kernels, and Parquet trajectory output. Field sampling runs
 through hand-written CUDA kernels for Hopper (``ops/``) on the card, and
 through their plain PyTorch versions for tensors on the CPU.
 
@@ -55,25 +56,39 @@ from parcels_tpu_torch.interpolators import (
     CGrid_Tracer,
     CGrid_Velocity,
     XConstantField,
+    XFreeslip,
     XLinear,
+    XLinearInvdistLandTracer,
     XLinear_Velocity,
+    XNearest,
+    XPartialslip,
 )
 from parcels_tpu_torch.kernels import (
+    AdvectionAnalytical,
+    AdvectionDiffusionEM,
+    AdvectionDiffusionM1,
     AdvectionEE,
     AdvectionRK2,
     AdvectionRK2_3D,
+    AdvectionRK2_3D_CROCO,
     AdvectionRK4,
     AdvectionRK4_3D,
     AdvectionRK45,
+    DiffusionUniformKh,
+    SampleOmegaCroco,
 )
 
 __version__ = "0.1.0"
 
 __all__ = [
     "EARTH_RADIUS",
+    "AdvectionAnalytical",
+    "AdvectionDiffusionEM",
+    "AdvectionDiffusionM1",
     "AdvectionEE",
     "AdvectionRK2",
     "AdvectionRK2_3D",
+    "AdvectionRK2_3D_CROCO",
     "AdvectionRK4",
     "AdvectionRK4_3D",
     "AdvectionRK45",
@@ -81,6 +96,7 @@ __all__ = [
     "CFDatetime",
     "CGrid_Tracer",
     "CGrid_Velocity",
+    "DiffusionUniformKh",
     "EngineOptions",
     "Field",
     "FieldEvalWarning",
@@ -101,15 +117,20 @@ __all__ = [
     "ParticleFile",
     "ParticleSet",
     "ParticleSetWarning",
+    "SampleOmegaCroco",
     "SphericalMesh",
     "StatusCode",
     "TimeInterval",
     "Variable",
     "VectorField",
     "XConstantField",
+    "XFreeslip",
     "XGrid",
     "XLinear",
+    "XLinearInvdistLandTracer",
     "XLinear_Velocity",
+    "XNearest",
+    "XPartialslip",
     "convert",
     "get_default_particle",
     "get_mesh",

@@ -24,7 +24,7 @@ from typing import Callable, Sequence
 
 import torch
 
-from parcels_tpu_torch._core.particles_view import Particles
+from parcels_tpu_torch._core.particles_view import Particles, split_key
 from parcels_tpu_torch._core.statuscodes import MIN_ERROR_CODE, StatusCode
 
 __all__ = ["DEFAULT_BLOCK_SIZE", "RESORT_EVERY", "compute_loop_masks", "engine_step", "run_chunk"]
@@ -184,13 +184,19 @@ def run_chunk(
                 f"Particle count {n} must be a multiple of block_size {block_size} "
                 "(the ParticleSet pads with inactive lanes)."
             )
-        # RNG-consuming kernels (and their per-block key split) belong to a
-        # later slice; the key is carried through unchanged
+        # each block draws from its own key, split from the SoA key as the
+        # JAX engine splits it; the merged key is block 0's. The split happens
+        # at every chunk, so with more than one block the streams depend on
+        # the chunk lengths (ParticleSet.execute holds them at their cap
+        # unless a step takes longer than the chunk target over the cap).
+        nblocks = n // block_size
+        keys = split_key(pdata["_rng"], nblocks)
         outs = []
-        for b in range(n // block_size):
+        for b in range(nblocks):
             sl = slice(b * block_size, (b + 1) * block_size)
             outs.append(block({
-                k: v if (k == "_rng" or v.dim() == 0) else v[sl] for k, v in pdata.items()
+                k: keys[b] if k == "_rng" else (v if v.dim() == 0 else v[sl])
+                for k, v in pdata.items()
             }))
         out = {
             k: outs[0][k] if (k == "_rng" or v.dim() == 0) else torch.cat([o[k] for o in outs])

@@ -274,6 +274,11 @@ class FieldSet:
         )
 
     # -- device tensors ------------------------------------------------------
+    def _invalidate_caches(self):
+        """Drop the cached device tensors, so that a field's swapped
+        ``interp_method`` (and the tables it needs) is seen."""
+        object.__setattr__(self, "_device_cache", None)
+
     def device_arrays(self) -> dict:
         """All field data + grid coordinates on the fieldset's device; cached."""
         if self._device_cache is not None:

@@ -6,13 +6,37 @@ shared SoA dict under the engine-supplied lane mask, which reproduces the
 reference's "kernel runs on the masked subset, writes go to the parent
 SoA" semantics without dynamic shapes. Writes build new tensors and never
 update the SoA in place, so a shallow copy of the dict is a snapshot.
+
+Random draws: the SoA's ``_rng`` is a (2,) uint32 key, as in the JAX
+package, kept on the host (a CPU tensor) so that a draw needs no device
+read. Every draw splits it (``split_key``, a counter-free hash through
+``numpy.random.SeedSequence``) into the carried key and a subkey that seeds
+a ``torch.Generator`` on the lanes' device (Philox on the card, mt19937 on
+the CPU). The streams are deterministic per seed and device, but are not
+the JAX package's threefry streams.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["Particles"]
+__all__ = ["Particles", "split_key"]
+
+
+def split_key(key, num: int = 2) -> list:
+    """``num`` new (2,) uint32 keys derived from ``key`` (a (2,) tensor or
+    array), on the host: distinct keys give unrelated children."""
+    words = np.asarray(key, dtype=np.uint32).reshape(2)
+    state = np.random.SeedSequence([int(w) for w in words]).generate_state(2 * num, np.uint32)
+    return [torch.from_numpy(state[2 * i:2 * i + 2].copy()) for i in range(num)]
+
+
+def _generator(key, device) -> torch.Generator:
+    k0, k1 = (int(w) for w in np.asarray(key, dtype=np.uint32))
+    g = torch.Generator(device=device)
+    g.manual_seed((k0 << 32) | k1)
+    return g
 
 
 class Particles:
@@ -61,6 +85,24 @@ class Particles:
         ei = ei.clone()
         ei[:, igrid] = new_col
         self._data["ei"] = ei
+
+    def _draw(self):
+        """Split the SoA key; a generator on the lanes' device seeded from
+        the subkey."""
+        d = self._data
+        d["_rng"], sub = split_key(d["_rng"])
+        return _generator(sub, d["state"].device)
+
+    def random_normal(self, dtype=torch.float32):
+        """Per-particle standard normals from the engine RNG (reference
+        kernels/_advectiondiffusion.py:37 draws np.random.normal)."""
+        n, dev = self._data["state"].shape[0], self._data["state"].device
+        return torch.randn(n, generator=self._draw(), device=dev, dtype=dtype)
+
+    def random_uniform(self, dtype=torch.float32):
+        """Per-particle uniform [0, 1) draws from the engine RNG."""
+        n, dev = self._data["state"].shape[0], self._data["state"].device
+        return torch.rand(n, generator=self._draw(), device=dev, dtype=dtype)
 
     def __len__(self):
         return self._data["state"].shape[0]

@@ -53,14 +53,16 @@ def state_from_numpy(field_arrays: dict, pdata: dict, device):
     ``field_arrays`` is ``{"fields": {name: array}, "grids": [{coord:
     array}]}`` as ``FieldSet.device_arrays()`` holds it; ``pdata`` is a
     ``ParticleSet._data`` dict. Every array keeps its dtype (f32 positions
-    and ``_tc`` carry, int32 ``state``/``ei``, bool ``_active``).
+    and ``_tc`` carry, int32 ``state``/``ei``, bool ``_active``); the
+    ``_rng`` key stays on the host, as the port keeps it.
     """
     device = torch.device(device)
     farrays = {
         "fields": {k: _to_device(v, device) for k, v in field_arrays["fields"].items()},
         "grids": [{k: _to_device(v, device) for k, v in g.items()} for g in field_arrays["grids"]],
     }
-    return farrays, {k: _to_device(v, device) for k, v in pdata.items()}
+    return farrays, {k: _to_device(v, "cpu" if k == "_rng" else device)
+                     for k, v in pdata.items()}
 
 
 def _host(v: torch.Tensor) -> np.ndarray:
@@ -112,7 +114,9 @@ class ParticleSet:
             if kwvar not in var_names:
                 raise RuntimeError(f"Particle class does not have Variable {kwvar}")
             data[kwvar][:] = kwval.astype(data[kwvar].dtype)
-        self._data = {k: _to_device(v, self.device) for k, v in data.items()}
+        # the RNG key stays on the host: a draw splits it without a device read
+        self._data = {k: _to_device(v, "cpu" if k == "_rng" else self.device)
+                      for k, v in data.items()}
 
     @property
     def device(self) -> torch.device:

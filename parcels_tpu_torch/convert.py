@@ -1,10 +1,11 @@
-"""Model-output -> SGRID convention normalizers (NEMO).
+"""Model-output -> SGRID convention normalizers (NEMO, CROCO).
 
-Copy of the NEMO part of the JAX package's ``convert.py``: ``nemo_to_sgrid``
-and the helpers it calls, unchanged apart from the imports. It takes raw
-NEMO/MOi output (xrlite or real xarray datasets, duck-typed) and returns an
-SGRID-annotated dataset for ``FieldSet.from_sgrid_conventions``. The
-converters for other models belong to a later slice of the port.
+Copy of the NEMO and CROCO parts of the JAX package's ``convert.py``:
+``nemo_to_sgrid``, ``croco_to_sgrid`` and the helpers they call, unchanged
+apart from the imports. They take raw model output (xrlite or real xarray
+datasets, duck-typed) and return an SGRID-annotated dataset for
+``FieldSet.from_sgrid_conventions``. The converters for other models belong
+to a later slice of the port.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from parcels_tpu_torch import _sgrid as sgrid
 from parcels_tpu_torch import xrlite as xr
 from parcels_tpu_torch._logging import logger
 
-__all__ = ["nemo_to_sgrid"]
+__all__ = ["croco_to_sgrid", "nemo_to_sgrid"]
 
 _NEMO_VARNAMES_MAPPING = {
     "time_counter": "time",
@@ -34,6 +35,8 @@ _NEMO_AXIS_VARNAMES = {
     "x": "X", "x_center": "X", "y": "Y", "y_center": "Y",
     "depth": "Z", "depth_center": "Z", "time": "T",
 }
+
+_CROCO_VARNAMES_MAPPING = {"x_rho": "lon", "y_rho": "lat", "s_w": "depth"}
 
 
 
@@ -90,6 +93,29 @@ def _set_axis_attrs(ds: xr.Dataset, dim_axis: dict) -> xr.Dataset:
     for dim, axis in dim_axis.items():
         if dim in ds:
             ds[dim].attrs["axis"] = axis
+    return ds
+
+
+
+def _maybe_float_time_to_timedelta(ds: xr.Dataset) -> xr.Dataset:
+    """Float time axis -> timedelta64[ns] using its units attr (reference :233-260)."""
+    if "time" not in ds:
+        return ds
+    tvals = np.asarray(ds["time"].values)
+    if not np.issubdtype(tvals.dtype, np.floating):
+        return ds
+    units = str(ds["time"].attrs.get("units", "")).lower()
+    factor = 1e9
+    if "hour" in units:
+        factor = 3600.0 * 1e9
+    elif "day" in units:
+        factor = 86400.0 * 1e9
+    elif "minute" in units:
+        factor = 60.0 * 1e9
+    ns = np.rint(tvals * factor).astype("int64").astype("timedelta64[ns]")
+    ds["time"] = xr.DataArray(ns, dims=ds["time"].dims, attrs=ds["time"].attrs)
+    ds.set_coords("time")
+    logger.info("convert: converted float time axis to timedelta64 (units=%r)", units)
     return ds
 
 
@@ -215,3 +241,30 @@ def nemo_to_sgrid(*, fields: dict, coords) -> xr.Dataset:
         ),
     )
     return ds
+
+
+def croco_to_sgrid(*, fields: dict, coords) -> xr.Dataset:
+    """CROCO output -> SGRID dataset (reference convert.py:469-524).
+
+    Keeps sigma levels as the (dimensionless) depth axis; use the
+    kernels.sigmagrids helpers for z<->sigma conversion at runtime.
+    """
+    ds = _merge_fields_and_coords(dict(fields), coords)
+    for name in ("x_rho", "y_rho", "s_w", "time"):
+        if name not in ds:
+            raise ValueError(f"Expected coordinate {name!r} not found in provided coords dataset.")
+    ds = _maybe_rename(ds, _CROCO_VARNAMES_MAPPING)
+    ds = _maybe_float_time_to_timedelta(ds)
+    ds = _set_axis_attrs(ds, {"lon": "X", "lat": "Y", "depth": "Z", "time": "T"})
+    return _attach_grid(
+        ds,
+        sgrid.SGrid2DMetadata(
+            node_dimensions=("lon", "lat"),
+            node_coordinates=("lon", "lat"),
+            face_dimensions=(
+                sgrid.FaceNodePadding("xi_u", "xi_rho", sgrid.Padding.HIGH),
+                sgrid.FaceNodePadding("eta_v", "eta_rho", sgrid.Padding.HIGH),
+            ),
+            vertical_dimensions=(sgrid.FaceNodePadding("s_rho", "depth", sgrid.Padding.HIGH),),
+        ),
+    )

@@ -3,16 +3,22 @@
 from parcels_tpu_torch.datasets.moi import moi_like_fieldset, moi_like_inputs
 from parcels_tpu_torch.datasets.structured import (
     curvilinear_rotated_dataset,
+    decaying_moving_eddy_dataset,
     moving_eddy_dataset,
     peninsula_dataset,
+    radial_rotation_dataset,
     simple_UV_dataset,
+    stommel_gyre_dataset,
 )
 
 __all__ = [
     "curvilinear_rotated_dataset",
+    "decaying_moving_eddy_dataset",
     "moi_like_fieldset",
     "moi_like_inputs",
     "moving_eddy_dataset",
     "peninsula_dataset",
+    "radial_rotation_dataset",
     "simple_UV_dataset",
+    "stommel_gyre_dataset",
 ]

@@ -2,8 +2,9 @@
 
 The subset of the JAX package's fixture library (datasets/structured.py)
 that the port's slices use: the SGRID wrapping helpers, the zero-flow
-``simple_UV_dataset`` that tests overwrite, the Fabbroni (2009) moving eddy
-with its closed-form trajectory, the A- and C-grid peninsula and the rotated
+``simple_UV_dataset`` that tests overwrite, the solid-body rotation, the
+Fabbroni (2009) moving and decaying eddies with their closed-form
+trajectories, the A- and C-grid peninsula, the Stommel gyre and the rotated
 curvilinear grid.
 """
 
@@ -17,9 +18,12 @@ from parcels_tpu_torch._core.timeutils import timedelta_to_float
 
 __all__ = [
     "curvilinear_rotated_dataset",
+    "decaying_moving_eddy_dataset",
     "moving_eddy_dataset",
     "peninsula_dataset",
+    "radial_rotation_dataset",
     "simple_UV_dataset",
+    "stommel_gyre_dataset",
 ]
 
 def _wrap_sgrid(ds: xr.Dataset, xdim: int, ydim: int, y_padding=sgrid.Padding.LOW, with_z=True) -> xr.Dataset:
@@ -78,6 +82,28 @@ def simple_UV_dataset(dims=(360, 2, 30, 4), maxdepth=1.0, mesh="spherical"):
     return _wrap_sgrid(ds, xdim, ydim)
 
 
+def radial_rotation_dataset(xdim=200, ydim=200):
+    """Solid-body rotation about (30, 30) with period 1 day, flat mesh."""
+    lon = np.linspace(0, 60, xdim, dtype=np.float32)
+    lat = np.linspace(0, 60, ydim, dtype=np.float32)
+    x0 = y0 = 30.0
+    omega = 2 * np.pi / 86400.0
+
+    LON, LAT = np.meshgrid(lon, lat)
+    r = np.sqrt((LON - x0) ** 2 + (LAT - y0) ** 2)
+    theta = np.arctan2(LAT - y0, LON - x0)
+    U = np.broadcast_to(r * np.sin(theta) * omega, (2, 1, ydim, xdim)).astype(np.float32)
+    V = np.broadcast_to(-r * np.cos(theta) * omega, (2, 1, ydim, xdim)).astype(np.float32)
+
+    time = np.array([np.timedelta64(0, "s"), np.timedelta64(10, "D")])
+    ds = xr.Dataset(
+        {"U": (["time", "depth", "YG", "XG"], U), "V": (["time", "depth", "YG", "XG"], V)},
+        coords=_coords_2d(lon, lat, time=time, depth=np.array([0.0]), mesh="flat"),
+        attrs={"omega": omega},
+    )
+    return _wrap_sgrid(ds, xdim, ydim, y_padding=sgrid.Padding.HIGH)
+
+
 def moving_eddy_dataset(xdim=2, ydim=2):
     """Spatially-uniform, time-oscillating inertial eddy (Fabbroni 2009 no-decay case)."""
     f, u_0, u_g = 1.0e-4, 0.3, 0.04
@@ -94,6 +120,35 @@ def moving_eddy_dataset(xdim=2, ydim=2):
         },
         coords=_coords_2d(lon, lat, time=time, depth=np.array([0.0]), mesh="flat"),
         attrs={"u_0": u_0, "u_g": u_g, "f": f},
+    )
+    return _wrap_sgrid(ds, xdim, ydim, y_padding=sgrid.Padding.HIGH)
+
+
+def decaying_moving_eddy_dataset(xdim=2, ydim=2):
+    """Decaying inertial eddy over geostrophic flow (Fabbroni 2009)."""
+    u_g, u_0 = 0.04, 0.3
+    gamma = 1.0 / (2.89 * 86400)
+    gamma_g = 1.0 / (28.9 * 86400)
+    f = 1.0e-4
+    time = np.arange(
+        np.timedelta64(0, "s"), np.timedelta64(1, "D") + np.timedelta64(1, "h"), np.timedelta64(2, "m")
+    )
+    lon = np.linspace(0, 20000, xdim, dtype=np.float32)
+    lat = np.linspace(5000, 12000, ydim, dtype=np.float32)
+    tsec = timedelta_to_float(time)
+    U = (u_g * np.exp(-gamma_g * tsec) + (u_0 - u_g) * np.exp(-gamma * tsec) * np.cos(f * tsec))[
+        :, None, None, None
+    ] * np.ones((1, 1, ydim, xdim))
+    V = (-(u_0 - u_g) * np.exp(-gamma * tsec) * np.sin(f * tsec))[:, None, None, None] * np.ones(
+        (1, 1, ydim, xdim)
+    )
+    ds = xr.Dataset(
+        {
+            "U": (["time", "depth", "YG", "XG"], U.astype(np.float32)),
+            "V": (["time", "depth", "YG", "XG"], V.astype(np.float32)),
+        },
+        coords=_coords_2d(lon, lat, time=time, depth=np.array([0.0]), mesh="flat"),
+        attrs={"u_0": u_0, "u_g": u_g, "f": f, "gamma": gamma, "gamma_g": gamma_g},
     )
     return _wrap_sgrid(ds, xdim, ydim, y_padding=sgrid.Padding.HIGH)
 
@@ -161,6 +216,50 @@ def peninsula_dataset(xdim=100, ydim=50, mesh="flat", grid_type="A"):
     if mesh == "spherical":
         ds["lon"].attrs["units"] = "degrees_east"
         ds["lat"].attrs["units"] = "degrees_north"
+    meta = sgrid.SGrid2DMetadata(
+        node_dimensions=("XG", "YG"),
+        node_coordinates=("lon", "lat"),
+        face_dimensions=(
+            sgrid.FaceNodePadding("XC", "XG", sgrid.Padding.LOW),
+            sgrid.FaceNodePadding("YC", "YG", sgrid.Padding.LOW),
+        ),
+    )
+    return sgrid.attach_sgrid_metadata(ds, meta)
+
+
+def stommel_gyre_dataset(xdim=200, ydim=200, grid_type="A"):
+    """Stommel western-boundary gyre (Fabbroni 2009); P conserved on trajectories."""
+    a = b = 10000 * 1e3
+    scalefac = 0.05
+    dx, dy = a / xdim, b / ydim
+
+    lon = np.linspace(0, a, xdim, dtype=np.float32)
+    lat = np.linspace(0, b, ydim, dtype=np.float32)
+
+    beta = 2e-11
+    r = 1 / (11.6 * 86400)
+    es = r / (beta * a)
+
+    XI = lon[None, :] / a
+    YI = lat[:, None] / b
+    P = ((1 - np.exp(-XI / es) - XI) * np.pi * np.sin(np.pi * YI) * scalefac).astype(np.float32)
+    U = np.zeros((ydim, xdim), dtype=np.float32)
+    V = np.zeros((ydim, xdim), dtype=np.float32)
+    if grid_type == "A":
+        U = (-(1 - np.exp(-XI / es) - XI) * np.pi**2 * np.cos(np.pi * YI) * scalefac).astype(np.float32)
+        V = ((np.exp(-XI / es) / es - 1) * np.pi * np.sin(np.pi * YI) * scalefac).astype(np.float32)
+        Udims = ["YC", "XC"]
+        Vdims = ["YC", "XC"]
+    else:
+        U[1:, :] = -(P[1:, :] - P[:-1, :]) / dy * b
+        V[:, 1:] = (P[:, 1:] - P[:, :-1]) / dx * a
+        Udims = ["YG", "XC"]
+        Vdims = ["YC", "XG"]
+
+    ds = xr.Dataset(
+        {"U": (Udims, U), "V": (Vdims, V), "P": (["YG", "XG"], P)},
+        coords=_cgrid_coords(lon, lat, xdim, ydim),
+    )
     meta = sgrid.SGrid2DMetadata(
         node_dimensions=("XG", "YG"),
         node_coordinates=("lon", "lat"),

@@ -5,8 +5,12 @@ from parcels_tpu_torch.interpolators.xinterp import (
     CGrid_Tracer,
     CGrid_Velocity,
     XConstantField,
+    XFreeslip,
     XLinear,
+    XLinearInvdistLandTracer,
     XLinear_Velocity,
+    XNearest,
+    XPartialslip,
 )
 
 __all__ = [
@@ -15,6 +19,10 @@ __all__ = [
     "ScalarInterpolator",
     "VectorInterpolator",
     "XConstantField",
+    "XFreeslip",
     "XLinear",
+    "XLinearInvdistLandTracer",
     "XLinear_Velocity",
+    "XNearest",
+    "XPartialslip",
 ]

@@ -7,9 +7,10 @@ engine-sorted batch, else to the plain 16-corner gather ``_multilinear``.
 The dispatch depends on shapes and options only, never on the device: on
 the CPU the kernels' plain versions run the same branches.
 
-Schemes: XLinear, XLinear_Velocity, XConstantField, and the Delandmeter &
-van Sebille (2019) C-grid schemes CGrid_Velocity and CGrid_Tracer. The slip
-and nearest schemes belong to a later slice.
+Schemes: XLinear, XNearest, XLinear_Velocity, XConstantField, the
+Delandmeter & van Sebille (2019) C-grid schemes CGrid_Velocity and
+CGrid_Tracer, the slip boundary conditions XFreeslip and XPartialslip, and
+the land-aware tracer XLinearInvdistLandTracer.
 """
 
 from __future__ import annotations
@@ -20,7 +21,17 @@ import torch
 
 from parcels_tpu_torch.interpolators._base import ScalarInterpolator, VectorInterpolator
 
-__all__ = ["CGrid_Tracer", "CGrid_Velocity", "XConstantField", "XLinear", "XLinear_Velocity"]
+__all__ = [
+    "CGrid_Tracer",
+    "CGrid_Velocity",
+    "XConstantField",
+    "XFreeslip",
+    "XLinear",
+    "XLinearInvdistLandTracer",
+    "XLinear_Velocity",
+    "XNearest",
+    "XPartialslip",
+]
 
 
 def _flat_gather(data4d, ti, zi, yi, xi):
@@ -107,6 +118,23 @@ class XConstantField(ScalarInterpolator):
 
     def interp(self, ppos, gpos, field):
         return field.data[0, 0, 0, 0] * torch.ones_like(ppos["x"])
+
+
+class XNearest(ScalarInterpolator):
+    """Nearest neighbour in space, linear interpolation in time."""
+
+    def interp(self, ppos, gpos, field):
+        data = field.data
+        T, Z, Y, X = data.shape
+        ti, tau, zi, zeta, yi, eta, xi, xsi = _positions(gpos)
+        zn = torch.where(zeta < 0.5, torch.clamp(zi, 0, Z - 1), torch.clamp(zi + 1, 0, Z - 1))
+        yn = torch.where(eta < 0.5, torch.clamp(yi, 0, Y - 1), torch.clamp(yi + 1, 0, Y - 1))
+        xn = torch.where(xsi < 0.5, torch.clamp(xi, 0, X - 1), torch.clamp(xi + 1, 0, X - 1))
+        v0 = _flat_gather(data, torch.clamp(ti, 0, T - 1), zn, yn, xn)
+        if T == 1:
+            return v0
+        v1 = _flat_gather(data, torch.clamp(ti + 1, 0, T - 1), zn, yn, xn)
+        return v0 * (1 - tau) + v1 * tau
 
 
 class XLinear_Velocity(VectorInterpolator):  # noqa: N801
@@ -423,3 +451,114 @@ def _corner_stack(data, ti, tau, zi, yi, xi, blend_z: bool):
                                   tblend(z_, yy, torch.clamp(xi + 1, 0, X - 1))]))
         rows.append(torch.stack(r))
     return torch.stack(rows)  # (nz, 2(y), 2(x), n)
+
+
+def _is_zero(v):
+    """``jnp.isclose(v, 0.0)`` at its default tolerances (rtol 1e-5, atol 1e-8)."""
+    return torch.isclose(v, torch.zeros_like(v), rtol=1e-5, atol=1e-8)
+
+
+def _spatialslip(ppos, gpos, vf, a: float, b: float):
+    """Shared free/partial-slip machinery (reference _xinterpolators.py:386-476).
+
+    The velocities come from ``XLinear`` (K1 or K2 on the card); a component
+    is rescaled where a whole row or column of the cell's corners is land
+    (U and V both zero at every level of the stencil).
+    """
+    spec = vf.grid.spec
+    ti, tau, zi, zeta, yi, eta, xi, xsi = _positions(gpos)
+    lin = XLinear()
+    u = lin.interp(ppos, gpos, vf.U)
+    v = lin.interp(ppos, gpos, vf.V)
+    w = lin.interp(ppos, gpos, vf.W) if vf.W is not None else None
+
+    Z = vf.U.data.shape[1]
+    blend_z = Z > 1
+    cu = _corner_stack(vf.U.data, ti, tau, zi, yi, xi, blend_z)
+    cv = _corner_stack(vf.V.data, ti, tau, zi, yi, xi, blend_z)
+    land = _is_zero(cu) & _is_zero(cv)  # (nz, 2, 2, n)
+    nz = land.shape[0]
+
+    def all_z(jy, jx):
+        m = land[0, jy, jx]
+        for k in range(1, nz):
+            m = m & land[k, jy, jx]
+        return m
+
+    def factor(frac, low_land, high_land):
+        f = torch.ones_like(frac)
+        low = low_land & (frac > 0)
+        f = torch.where(low, f * (a + b * frac) / torch.where(low, frac, 1.0), f)
+        high = high_land & (frac < 1)
+        f = torch.where(high, f * (1 - b * frac) / torch.where(high, 1 - frac, 1.0), f)
+        return f
+
+    # u scaled when the full south or north row is land
+    f_u = factor(eta, all_z(0, 0) & all_z(0, 1), all_z(1, 0) & all_z(1, 1))
+    # v scaled when the full west or east column is land
+    f_v = factor(xsi, all_z(0, 0) & all_z(1, 0), all_z(0, 1) & all_z(1, 1))
+    u = u * f_u
+    v = v * f_v
+
+    if spec.spherical:
+        u = u / (spec.deg2m * torch.cos(torch.deg2rad(ppos["y"])))
+        v = v / spec.deg2m
+
+    if w is not None:
+        f_w = factor(eta, all_z(0, 0) & all_z(0, 1), all_z(1, 0) & all_z(1, 1))
+        f_w = f_w * factor(xsi, all_z(0, 0) & all_z(1, 0), all_z(0, 1) & all_z(1, 1))
+        w = w * f_w
+    else:
+        w = torch.zeros_like(u)
+    return u, v, w
+
+
+class XFreeslip(VectorInterpolator):
+    """Free-slip boundary condition velocity interpolation."""
+
+    def interp(self, ppos, gpos, vf):
+        return _spatialslip(ppos, gpos, vf, a=1.0, b=0.0)
+
+
+class XPartialslip(VectorInterpolator):
+    """Partial-slip boundary condition velocity interpolation."""
+
+    def interp(self, ppos, gpos, vf):
+        return _spatialslip(ppos, gpos, vf, a=0.5, b=0.5)
+
+
+class XLinearInvdistLandTracer(ScalarInterpolator):
+    """Trilinear tracer that excludes land (zero) corners via inverse-distance weights."""
+
+    def interp(self, ppos, gpos, field):
+        data = field.data
+        T, Z, Y, X = data.shape
+        ti, tau, zi, zeta, yi, eta, xi, xsi = _positions(gpos)
+        values = XLinear().interp(ppos, gpos, field)
+
+        blend_z = Z > 1
+        corners = _corner_stack(data, ti, tau, zi, yi, xi, blend_z)  # (nz, 2, 2, n)
+        nz = corners.shape[0]
+        land = _is_zero(corners)
+        nb_land = land.sum(dim=(0, 1, 2))
+        total = 4 * nz
+
+        j = torch.arange(2, device=data.device).reshape(1, 2, 1, 1)
+        i = torch.arange(2, device=data.device).reshape(1, 1, 2, 1)
+        dist2 = (eta[None, None, None, :] - j) ** 2 + (xsi[None, None, None, :] - i) ** 2
+        dist2 = dist2.expand(corners.shape)
+        valid = ~land
+        inv = 1.0 / torch.where(dist2 == 0, 1.0, dist2)
+        weighted = torch.where(valid, corners * inv, 0.0)
+        val = weighted.sum(dim=(0, 1, 2))
+        wsum = torch.where(valid, inv, 0.0).sum(dim=(0, 1, 2))
+        invdist_val = val / torch.where(wsum == 0, 1.0, wsum)
+
+        exact = (dist2 == 0) & valid
+        exact_vals = torch.where(exact, corners, 0.0).sum(dim=(0, 1, 2))
+        has_exact = exact.any(dim=0).any(dim=0).any(dim=0)
+
+        some_land = (nb_land > 0) & (nb_land < total)
+        out = torch.where(some_land, invdist_val, values)
+        out = torch.where(some_land & has_exact, exact_vals, out)
+        return torch.where(nb_land == total, 0.0, out)

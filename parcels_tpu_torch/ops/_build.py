@@ -48,6 +48,11 @@ KERNEL_SOURCES = {
         "fused_rk4_launch",
         [_P, _P, _P, _P, ctypes.c_longlong, _F, _F, _F, _P],
     ),
+    "flat_rk4": (
+        "flat_rk4.cu",
+        "flat_rk4_launch",
+        [_P, _P, _P, _P, ctypes.c_longlong, _P],
+    ),
 }
 
 _LOADED: dict = {}
