@@ -11,11 +11,15 @@ counter is set to 0 just before a path runs and read just after):
 0. the card's name and power limit (nvidia-smi);
 1. build every CUDA kernel of the port from ``parcels_tpu_torch/csrc`` (nvcc, sm_90a);
 2. K1 (fold sampler) against its plain version at the K1 end-to-end shape,
-   1M lanes including edge, out-of-range and NaN positions;
+   1M lanes including edge, out-of-range and NaN positions; K1's and
+   ``F.grid_sample``'s times there, with every lane at one shared t (path
+   (a)'s lockstep step) and with the lanes sorted by cell;
 3. K2 (slab sampler) against its plain version and the plain gather, at
-   the 3-D end-to-end shape with 2M lanes sorted by the port's key; then
-   both kernels on small edge shapes (degenerate axes, K2's scalar
-   staging path, dead chunks);
+   the 3-D end-to-end shape with 2M lanes sorted by the port's key, with
+   the bytes it stages a call beside its bound (counted by the kernel, and
+   held to ``staged_bytes``, the host's count of its rule), and K1's
+   kernel timed as a direct gather over the same sorted lanes (a reading);
+   then both kernels on edge cases (``edge_phase``);
 4. end to end through ``ParticleSet.execute``:
    (a) a regional hourly surface-current field (24, 1, 256, 1000) with 1M
        particles, AdvectionRK4, dt 60 s for 1 h (K1);
@@ -93,12 +97,24 @@ def nvidia_smi() -> str:
     return out.splitlines()[0]
 
 
-def cuda_ms(torch, fn, reps=20, warmup=3) -> float:
-    """Mean device milliseconds of ``fn`` over ``reps`` back-to-back calls."""
+#: cycles the stream spins before a timed run (a few ms at the H100's clocks)
+QUEUE_CYCLES = 10_000_000
+
+
+def cuda_ms(torch, fn, reps=20, warmup=3, queued=False) -> float:
+    """Mean device milliseconds of ``fn`` over ``reps`` back-to-back calls.
+
+    With ``queued`` the stream first spins for a few milliseconds, so every
+    call is enqueued before the first one runs: the reading is then the
+    calls' device time alone, not bounded by the host's time to launch
+    them. The kernels' ``ms`` are read without it, as in every earlier run.
+    """
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(QUEUE_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -173,25 +189,79 @@ def k1_phase(torch, dev):
     if err > 1e-6:
         raise AssertionError(f"K1 disagrees with its plain version: max abs err {err}")
 
+    if not same_bits(torch, out, ref):
+        raise AssertionError("K1 is not bit for bit equal to its plain version")
+
     ms = cuda_ms(torch, lambda: ik.fold_sample(data, *pos))
+    queued_ms = cuda_ms(torch, lambda: ik.fold_sample(data, *pos), queued=True)
     plain_ms = cuda_ms(torch, lambda: ik.fold_sample_plain(data, *pos), reps=5)
-    # yardstick only: one library call computing the same (t, y, x) function
-    T, _, Y, X = shape
-    grid = torch.stack([2 * pos[3] / (X - 1) - 1, 2 * pos[2] / (Y - 1) - 1,
-                        2 * pos[0] / (T - 1) - 1], dim=-1).view(1, n, 1, 1, 3)
-    inp = data.view(1, 1, T, Y, X)
-    gs = lambda: torch.nn.functional.grid_sample(  # noqa: E731
-        inp, grid, mode="bilinear", padding_mode="zeros", align_corners=True)
-    lib = gs().view(n)
-    lib_err = float((lib - out).abs()[~nan_k].max())
+    gs = grid_sample_fn(torch, data, pos)
+    lib_err = float((gs().view(n) - out).abs()[~nan_k].max())
     library_ms = cuda_ms(torch, gs)
     nbytes = touched_field_bytes(torch, shape, pos) + n * 20
     bound_ms, bound_by = bound(nbytes, n * OPS_PER_LANE)
     log(f"[K1] shape {shape} lanes {n}: max abs err {err:.3g} max rel err {rel:.3g} "
-        f"(grid_sample differs by {lib_err:.3g}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"grid_sample {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, {nbytes} B)")
+        f"(grid_sample differs by {lib_err:.3g}); kernel {ms:.4f} ms ({queued_ms:.4f} ms queued "
+        f"behind a spin: device time alone), plain {plain_ms:.4f} ms, grid_sample {library_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms ({bound_by}, {nbytes} B); ptxas: {ptxas_lines('fold_sample')}")
+    k1_layouts(torch, data, pos)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=library_ms)
+
+
+def grid_sample_fn(torch, data, pos):
+    """Yardstick only: one library call computing K1's (t, y, x) function on
+    a field with Z == 1 (``F.grid_sample``, 5-D, trilinear, zero padding)."""
+    T, _, Y, X = data.shape
+    n = pos[0].shape[0]
+    grid = torch.stack([2 * pos[3] / (X - 1) - 1, 2 * pos[2] / (Y - 1) - 1,
+                        2 * pos[0] / (T - 1) - 1], dim=-1).view(1, n, 1, 1, 3)
+    inp = data.view(1, 1, T, Y, X)
+    return lambda: torch.nn.functional.grid_sample(
+        inp, grid, mode="bilinear", padding_mode="zeros", align_corners=True)
+
+
+def k1_layouts(torch, data, pos):
+    """K1 and grid_sample at phase 2's positions laid out two more ways:
+    every lane at one shared t (as path (a)'s lockstep step gives it), and
+    the lanes sorted by their (t, y, x) cell. The gaps say how much the
+    scatter of a warp's corner loads sets K1's pace."""
+    from parcels_tpu_torch.ops import interp_kernels as ik
+
+    T, _, Y, X = data.shape
+    shared = [torch.full_like(pos[0], 11.375), *pos[1:]]
+    cells = [torch.nan_to_num(torch.floor(p), nan=0.0).clamp(-2, d).to(torch.int64)
+             for p, d in zip((pos[0], pos[2], pos[3]), (T, Y, X))]
+    order = torch.argsort(((cells[0] + 2) * (Y + 3) + cells[1] + 2) * (X + 3) + cells[2] + 2)
+    ordered = [p[order].contiguous() for p in pos]
+    out, layouts = {}, {"shared t": shared, "sorted by cell": ordered}
+    for name, p in layouts.items():
+        if not same_bits(torch, ik.fold_sample(data, *p), ik.fold_sample_plain(data, *p)):
+            raise AssertionError(f"K1 disagrees with its plain version at {name} positions")
+        out[name] = (cuda_ms(torch, lambda: ik.fold_sample(data, *p)),
+                     cuda_ms(torch, grid_sample_fn(torch, data, p)))
+    log("[K1 layouts] " + "; ".join(f"{k}: kernel {a:.4f} ms, grid_sample {b:.4f} ms"
+                                    for k, (a, b) in out.items()))
+
+
+def ptxas_lines(name):
+    """What ``nvcc -Xptxas -v`` said of each kernel in a library: template
+    arguments (from the mangled name), registers, stack frame and spills."""
+    import re
+
+    from parcels_tpu_torch.ops import _build
+
+    out, entry = [], "?"
+    for ln in _build.BUILD_LOG.get(name, "").splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            t = re.search(r"kernelI(.*?)EEv", m.group(1))
+            entry = t.group(1) if t else m.group(1)
+        elif "stack frame" in ln:
+            out.append(f"{entry}: {ln.strip()}")
+        elif "registers" in ln:
+            out.append(f"{entry}: {ln.split(':', 1)[-1].strip()}")
+    return out
 
 
 def k2_phase(torch, dev):
@@ -221,8 +291,8 @@ def k2_phase(torch, dev):
     torch.cuda.synchronize()
     ref = bs.slab_sample_plain(data, plan)
     err = float((out - ref).abs().max())
-    if err > 1e-6:  # same rounding order as the plain version
-        raise AssertionError(f"K2 disagrees with its plain version: max abs err {err}")
+    if not same_bits(torch, out, ref):  # same rounding order as the plain version
+        raise AssertionError(f"K2 is not bit for bit equal to its plain version: max abs err {err}")
     vals = bs.binned_linear_sample(data, gpos)
     g16 = bs._gather16(data, bs._gather_lanes(gpos))
     err16 = float((vals - g16).abs().max())
@@ -232,6 +302,7 @@ def k2_phase(torch, dev):
         raise AssertionError(f"K2 + fix-up disagrees with the plain gather: {err16}")
     share = plan["count"] / n
     ms = cuda_ms(torch, lambda: bs.slab_sample(data, plan))
+    queued_ms = cuda_ms(torch, lambda: bs.slab_sample(data, plan), queued=True)
     plain_ms = cuda_ms(torch, lambda: bs.slab_sample_plain(data, plan), reps=5)
     fixed_ms = cuda_ms(torch, lambda: bs.binned_linear_sample(data, gpos), reps=5)
     pos = [gpos[ax]["index"].float() + gpos[ax]["bcoord"] for ax in "TZYX"]
@@ -239,28 +310,92 @@ def k2_phase(torch, dev):
     plan_bytes += sum(a.numel() * 4 for a in plan["origins"].values())
     nbytes = touched_field_bytes(torch, shape, pos) + plan["npad"] * 20 + plan_bytes
     bound_ms, bound_by = bound(nbytes, plan["npad"] * OPS_PER_LANE)
+    counter = torch.zeros(1, dtype=torch.int64, device=dev)
+    bs.slab_sample(data, plan, counter)
+    staged = int(counter)
+    host_staged = bs.staged_bytes(plan, torch.cuda.get_device_properties(dev).multi_processor_count)
+    if staged != host_staged:
+        raise AssertionError(f"K2 staged {staged} B, its rule counted on the host {host_staged} B")
     log(f"[K2] shape {shape} lanes {n}: geometry (WT,SZ,SY,SX,bz,by,bx)={geom} feasible {feasible}, "
-        f"window {4 * geom[0] * min(4, geom[1]) * geom[2] * geom[3]} B, overflow share {share:.4f}; "
-        f"max abs err vs plain {err:.3g}, K2+fix-up vs gather {err16:.3g}; kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, K2+plan fix-up {fixed_ms:.4f} ms, bound {bound_ms:.4f} ms "
-        f"({bound_by}, {nbytes} B); no single library call computes a 4-D (t,z,y,x) sample")
+        f"window {4 * geom[0] * plan['WZ'] * geom[2] * geom[3]} B, ring of "
+        f"{bs.ring_planes(geom)} planes, overflow share {share:.4f}; max abs err vs plain {err:.3g}, "
+        f"K2+fix-up vs gather {err16:.3g}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, K2+plan "
+        f"fix-up {fixed_ms:.4f} ms, kernel queued behind a spin (device time alone) "
+        f"{queued_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, {nbytes} B); staged "
+        f"{staged} B a call as the kernel counted its copies ({staged / 1e6:.1f} MB; "
+        f"{staged / HBM_BYTES_PER_S * 1e3:.4f} ms at the HBM rate), equal to the host's count "
+        f"of its staging rule; no single library call computes a 4-D (t,z,y,x) sample; "
+        f"ptxas: {ptxas_lines('slab_sample')}")
+    direct_gather_reading(torch, data, pos, g16)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=None)
 
 
+def direct_gather_reading(torch, data, pos, g16):
+    """A reading only: K1's kernel, which takes any 4-D field, as a direct
+    16-corner gather over phase 3's sorted lanes (absolute f32 positions, so
+    its values differ from the plain gather's by f32 rounding)."""
+    from parcels_tpu_torch.ops import interp_kernels as ik
+
+    out = ik.fold_sample(data, *pos)
+    torch.cuda.synchronize()
+    err = float((out - g16).abs().max())
+    ms = cuda_ms(torch, lambda: ik.fold_sample(data, *pos))
+    log(f"[K1 on K2's lanes] direct gather over the {pos[0].numel()} sorted lanes of "
+        f"{tuple(data.shape)}: {ms:.4f} ms, max abs diff from the plain gather {err:.3g}")
+    return ms
+
+
+def same_bits(torch, a, b) -> bool:
+    """Equal values, and NaN on the same lanes."""
+    return a.shape == b.shape and bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+#: K1 edge fields: degenerate T and Z (alone and together), X % 4 != 0, and
+#: the K1 path's shape; each also with a base that is not 16-byte aligned
+K1_EDGE_SHAPES = ((1, 1, 8, 8), (3, 4, 10, 130), (1, 3, 16, 67), (4, 1, 16, 64),
+                  (24, 1, 256, 1000))
+
+
+def unaligned(torch, data):
+    """A contiguous copy of ``data`` whose base sits 4 bytes past a 16-byte boundary."""
+    flat = torch.empty(data.numel() + 1, device=data.device)
+    out = flat[1:].view(data.shape)
+    out.copy_(data)
+    return out
+
+
 def edge_phase(torch, dev):
-    """Both kernels against their plain versions, bit for bit, on shapes the
-    end-to-end paths do not reach: degenerate T/Z axes, an X that rules out
-    16-byte loads (K2's scalar staging path) and dead chunks."""
+    """Both kernels against their plain versions, bit for bit (NaN lanes
+    included), on cases the end-to-end paths seldom or never reach. K1:
+    lanes at x0 = X - 1 and x0 % 4 == 3, far-out and NaN positions, on
+    degenerate T/Z axes, X % 4 != 0 and unaligned bases (K1's 4-byte load
+    path). K2: scripted window sequences (z moves of 0, 1, 2 and WZ or more
+    planes, a change of half mid-chunk, consecutive chunks with equal
+    origins, dead chunks) staged by bulk copies (X = 520) and by the scalar
+    path (X = 517), and planned sorted lanes at (2, 6, 40, 1101) (scalar)
+    and (1, 1, 64, 1024) with dead chunks."""
     from parcels_tpu_torch.ops import binned_sample as bs
     from parcels_tpu_torch.ops import interp_kernels as ik
 
     g = torch.Generator(device=dev).manual_seed(9)
-    for shape in ((1, 1, 8, 8), (3, 4, 10, 130)):
+    for i, shape in enumerate(K1_EDGE_SHAPES):
         data = torch.rand(shape, generator=g, device=dev)
-        pos = [torch.rand(5000, generator=g, device=dev) * (d + 1.0) - 1.0 for d in shape]
-        if not torch.equal(ik.fold_sample(data, *pos), ik.fold_sample_plain(data, *pos)):
-            raise AssertionError(f"K1 disagrees with its plain version at {shape}")
+        pos = ik.edge_positions(shape, 20000, seed=i, device=dev)
+        for field in (data, unaligned(torch, data)):
+            if not same_bits(torch, ik.fold_sample(field, *pos), ik.fold_sample_plain(data, *pos)):
+                raise AssertionError(f"K1 disagrees with its plain version at {shape} "
+                                     f"(base offset {field.data_ptr() % 16} B)")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for X in (520, 517):
+        plan = bs.edge_plans(X, device=dev)
+        data = torch.rand((3, 12, 40, X), generator=g, device=dev)
+        counter = torch.zeros(1, dtype=torch.int64, device=dev)
+        if not same_bits(torch, bs.slab_sample(data, plan, counter), bs.slab_sample_plain(data, plan)):
+            raise AssertionError(f"K2 disagrees with its plain version on the scripted plan, X {X}")
+        if int(counter) != bs.staged_bytes(plan, sms):
+            raise AssertionError(f"K2 staged {int(counter)} B on the scripted plan, X {X}; its "
+                                 f"rule counted on the host {bs.staged_bytes(plan, sms)} B")
     for shape in ((2, 6, 40, 1101), (1, 1, 64, 1024)):
         n = 20 * bs.CHUNK
         data = torch.rand(shape, generator=g, device=dev)
@@ -271,11 +406,13 @@ def edge_phase(torch, dev):
         gpos = {ax: {k: v[order].contiguous() for k, v in d.items()} for ax, d in gpos.items()}
         gpos["active"] = torch.arange(n, device=dev) < n - 3 * bs.CHUNK  # three dead chunks
         plan = bs._build_plan(shape, gpos)
-        if not torch.equal(bs.slab_sample(data, plan), bs.slab_sample_plain(data, plan)):
+        if not same_bits(torch, bs.slab_sample(data, plan), bs.slab_sample_plain(data, plan)):
             raise AssertionError(f"K2 disagrees with its plain version at {shape}")
     torch.cuda.synchronize()
-    log("[edges] K1 at (1,1,8,8), (3,4,10,130) and K2 at (2,6,40,1101) (scalar staging), "
-        "(1,1,64,1024) with dead chunks: equal to their plain versions")
+    log(f"[edges] K1 at {K1_EDGE_SHAPES}, aligned and unaligned, with edge positions; K2 on "
+        "scripted window sequences at X 520 (bulk copies) and 517 (scalar), staging what the host "
+        "counts, planned lanes at "
+        "(2,6,40,1101) (scalar) and (1,1,64,1024) with dead chunks: equal to their plain versions")
 
 
 #: f32 operations per lane of one K3 step, counting each add, multiply,

@@ -6,7 +6,9 @@ chunk of ``CHUNK`` consecutive sorted lanes spans at most two bins in the
 common case; the plan (``_build_plan``) gives each chunk a time origin and
 two slab origins, and each 128-lane sub-block a slab half and a z window.
 The hand-written kernel (``csrc/slab_sample.cu``) stages each sub-block's
-(WT, WZ, SY, SX) window into shared memory and samples its lanes there.
+(WT, WZ, SY, SX) window into a ring of z-planes in shared memory, loading
+only the planes the previous windows did not hold (``staged_bytes``
+counts them), and samples its lanes there.
 
 Lanes outside their sub-block's window ("overflow": chunks straddling three
 bins, sub-blocks straddling a z transition, stale lanes, an unsorted SoA)
@@ -40,18 +42,27 @@ __all__ = [
     "binned_enabled",
     "binned_linear_sample",
     "binned_usable",
+    "edge_plans",
+    "k2_grid",
     "plan_feasible",
     "quantize_z_occupancy",
+    "ring_planes",
+    "scripted_plan",
     "slab_geometry",
     "slab_sample",
     "slab_sample_plain",
     "sort_key_for",
+    "staged_bytes",
 ]
 
 #: lanes per CTA (one slab pair per chunk)
 CHUNK = 1024
 #: lanes per sub-block (one window per sub-block); the kernel's block size
 LANE = 128
+#: most chunks one K2 block walks (its window table takes 512 B a chunk)
+K2_MAX_CHUNKS = 64
+#: sub-blocks a K2 block samples at once (the kernel's GROUP)
+GROUP_SUBBLOCKS = 4
 #: want at least this many particles per bin (in CHUNK units)
 _BIN_FILL = 3
 #: overflow fix-up tier capacities, as n/DIV
@@ -61,6 +72,10 @@ _K_BIG_DIV = 8
 SMEM_WINDOW_BYTES = 200 * 1024
 #: x origins align to this many floats (16-byte loads)
 X_ALIGN = 4
+#: spare z-planes K2's ring may hold beyond the window
+RING_SPARE = 2
+#: shared memory the ring may take with its spare planes: two blocks fit an SM
+SMEM_RING_BYTES = 112 * 1024
 
 
 def binned_usable(shape4) -> bool:
@@ -386,11 +401,152 @@ def slab_sample_plain(data: torch.Tensor, plan) -> torch.Tensor:
     return torch.where(plan["live"][chunk] == 1, acc, 0.0)
 
 
-def slab_sample(data: torch.Tensor, plan) -> torch.Tensor:
+def ring_planes(geom) -> int:
+    """z-planes of K2's ring: the window's ``WZ`` plus up to ``RING_SPARE``
+    spare planes (which let sub-blocks whose windows differ in z share one
+    group), as far as ``SMEM_RING_BYTES`` allows."""
+    WT, SZ, SY, SX = geom[:4]
+    WZ = _zwin(SZ)
+    fit = SMEM_RING_BYTES // (4 * WT * SY * SX)
+    return max(WZ, min(WZ + RING_SPARE, fit))
+
+
+def k2_grid(G: int, sms: int) -> int:
+    """Blocks of K2's grid for ``G`` chunks on a card of ``sms`` SMs: two a
+    SM (two blocks fit one), more when a block would walk over
+    ``K2_MAX_CHUNKS`` chunks, at most one a chunk. Each block walks an
+    equal share of consecutive chunks, keeping its window ring."""
+    return min(G, max(2 * sms, -(-G // K2_MAX_CHUNKS)))
+
+
+def _windows(plan):
+    """Per sub-block window origin (t0, z, y, x) as host ints, or None in a
+    dead chunk."""
+    NS = plan["NS"]
+    o = {k: v.tolist() for k, v in plan["origins"].items()}
+    t0, live = plan["t0"].tolist(), plan["live"].tolist()
+    out = []
+    for q, (h, zw) in enumerate(zip(plan["shalf"].tolist(), plan["z0w"].tolist())):
+        g = q // NS
+        tag = "2" if h else "1"
+        out.append((t0[g], o["z" + tag][g] + zw, o["y" + tag][g], o["x" + tag][g])
+                   if live[g] else None)
+    return out
+
+
+def _origin(w):
+    return w[0], w[2], w[3]
+
+
+def staged_bytes(plan, sms: int) -> int:
+    """Field bytes K2 stages into shared memory for ``plan`` on a card of
+    ``sms`` SMs, counted on the host (``slab_sample(..., staged=)`` counts
+    them on the card).
+
+    Follows the kernel's rule: block b of ``B = k2_grid(G, sms)`` walks chunks
+    ``[b G // B, (b + 1) G // B)``, skipping dead ones, ``GROUP_SUBBLOCKS`` sub-blocks
+    at a time: a group is a run of consecutive live sub-blocks with one
+    (t0, y, x) origin whose z windows together span at most
+    ``ring_planes`` planes. A group loads the planes of its span that the
+    previous group of the block did not span with the same origin; so a
+    window that moves by d < WZ planes loads d planes, and a block's first
+    group, a change of origin or a jump of WZ or more loads in full.
+    """
+    WT, _, SY, SX = plan["geom"][:4]
+    WZ, RZ, NS = plan["WZ"], ring_planes(plan["geom"]), plan["NS"]
+    wins = _windows(plan)
+    G = plan["G"]
+    B = k2_grid(G, sms)
+    planes = 0
+    for b in range(B):
+        blk = wins[b * G // B * NS:(b + 1) * G // B * NS]
+        prev, span = None, (0, 0)
+        k = 0
+        while k < len(blk):
+            if blk[k] is None:
+                k += 1
+                continue
+            first = blk[k]
+            lo, hi, cnt = first[1], first[1] + WZ, 1
+            while cnt < GROUP_SUBBLOCKS and k + cnt < len(blk):
+                w = blk[k + cnt]
+                if w is None or _origin(w) != _origin(first):
+                    break
+                if max(hi, w[1] + WZ) - min(lo, w[1]) > RZ:
+                    break
+                lo, hi, cnt = min(lo, w[1]), max(hi, w[1] + WZ), cnt + 1
+            same = prev is not None and _origin(prev) == _origin(first)
+            overlap = max(0, min(hi, span[1]) - max(lo, span[0])) if same else 0
+            planes += hi - lo - overlap
+            prev, span = first, (lo, hi)
+            k += cnt
+    return 4 * WT * SY * SX * planes
+
+
+def scripted_plan(shape4, geom, t0, org1, org2, shalf, z0w, live, seed=0, device="cpu"):
+    """A K2 plan with the given windows and random slab-relative positions.
+
+    ``geom`` is (WT, SZ, SY, SX); ``t0``, ``live`` and the (z, y, x) slab
+    origins ``org1``/``org2`` are per chunk, ``shalf`` and ``z0w`` per
+    sub-block (``NS`` per chunk). Positions fall inside their sub-block's
+    window and up to 0.6 of a cell beyond it; every 97th lane is NaN.
+    Window sequences the planner seldom produces can so be held against
+    the plain version.
+    """
+    WT, SZ, SY, SX = geom
+    WZ = _zwin(SZ)
+    G, NS = len(t0), CHUNK // LANE
+    npad = G * CHUNK
+    g = torch.Generator().manual_seed(seed)
+
+    def ints(a):
+        return torch.as_tensor(a, dtype=torch.int32).reshape(-1).contiguous().to(device)
+
+    zw = torch.as_tensor(z0w, dtype=torch.float32).reshape(-1).repeat_interleave(LANE)
+    rel = []
+    for lo, ext in ((0.0, WT), (zw, WZ), (0.0, SY), (0.0, SX)):
+        rel.append(lo + torch.rand(npad, generator=g) * (ext + 0.2) - 0.6)
+    rel[3][::97] = float("nan")
+    origins = {f"{a}{k}": ints([o[i] for o in org]) for k, org in (("1", org1), ("2", org2))
+               for i, a in enumerate("zyx")}
+    return {
+        "G": G, "NS": NS, "npad": npad, "geom": (WT, SZ, SY, SX), "WZ": WZ,
+        "t0": ints(t0), "origins": origins, "shalf": ints(shalf), "z0w": ints(z0w),
+        "live": ints(live), "rel": tuple(r.contiguous().to(device) for r in rel),
+    }
+
+
+def edge_plans(X=520, device="cpu"):
+    """Scripted plans over a (3, 12, 40, X) field, window (2, 4, 16, 128):
+    z windows that move by 0, 1, 2 and WZ or more planes (both ways), a
+    change of half mid-chunk, consecutive chunks with equal origins (across
+    a dead chunk too), halves that differ only in z, a new t0, duplicate
+    halves and dead chunks. An ``X`` that is not a multiple of 4 takes the
+    kernel's scalar staging path."""
+    geom = (2, 8, 16, 128)
+    a, b, c = (0, 4, 64), (2, 20, 128), (4, 20, 128)
+    chunks = [  # (t0, org1, org2, shalf, z0w, live)
+        (0, a, b, [0] * 8, [0, 0, 1, 3, 3, 4, 0, 2], 1),
+        (0, a, b, [0] * 4 + [1] * 4, [1, 1, 2, 2, 0, 1, 1, 2], 1),
+        (0, a, b, [1] * 8, [0] * 8, 0),
+        (0, b, b, [0] * 8, [2, 3, 3, 3, 4, 4, 4, 4], 1),
+        (1, b, c, [0, 1] * 4, [0, 0, 1, 0, 2, 3, 4, 2], 1),
+        (1, b, c, [1] * 8, [2, 2, 3, 3, 3, 4, 4, 4], 1),
+        (0, c, c, [0] * 8, [4, 0, 4, 0, 1, 2, 3, 4], 1),
+        (1, a, c, [1, 1, 0, 0, 1, 1, 0, 0], [0, 4, 4, 0, 1, 3, 2, 0], 0),
+    ]
+    cols = list(zip(*chunks))
+    return scripted_plan((3, 12, 40, X), geom, cols[0], cols[1], cols[2], cols[3], cols[4],
+                         cols[5], seed=X, device=device)
+
+
+def slab_sample(data: torch.Tensor, plan, staged: torch.Tensor | None = None) -> torch.Tensor:
     """Sample every planned lane from its staged window: (npad,) values.
 
     On a CUDA tensor this launches K2 (``slab_sample.launches`` counts the
-    launches); on a CPU tensor it runs the plain version.
+    launches); on a CPU tensor it runs the plain version. ``staged``, a
+    one-element int64 tensor on the card, receives the bytes of the copies
+    the kernel issues.
     """
     if data.device.type == "cpu":
         return slab_sample_plain(data, plan)
@@ -411,9 +567,11 @@ def slab_sample(data: torch.Tensor, plan) -> torch.Tensor:
         if p.dtype != torch.float32 or p.shape != (npad,) or p.device != data.device:
             raise ValueError("slab_sample: positions must be (npad,) float32 on the field's device")
     out = torch.empty(npad, dtype=torch.float32, device=data.device)
+    if staged is not None and (staged.dtype != torch.int64 or staged.device != data.device):
+        raise ValueError("slab_sample: staged must be an int64 tensor on the field's device")
     if G == 0:
         return out
-    # 16-byte window loads need 16-byte aligned rows and origins
+    # bulk (16-byte granular) window copies need 16-byte aligned rows and origins
     vec4 = int(X % 4 == 0 and SX % 4 == 0 and data.data_ptr() % 16 == 0)
     from parcels_tpu_torch.ops._build import load
 
@@ -421,7 +579,9 @@ def slab_sample(data: torch.Tensor, plan) -> torch.Tensor:
     err = launch(
         data.data_ptr(), T, Z, Y, X, *(a.data_ptr() for a in ints),
         *(p.data_ptr() for p in plan["rel"]), out.data_ptr(),
-        G, WT, plan["WZ"], SY, SX, NS, vec4,
+        G, WT, plan["WZ"], ring_planes(plan["geom"]), SY, SX, NS,
+        k2_grid(G, torch.cuda.get_device_properties(data.device).multi_processor_count), vec4,
+        None if staged is None else staged.data_ptr(),
         torch.cuda.current_stream(data.device).cuda_stream,
     )
     if err != 0:

@@ -17,7 +17,13 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["fits_fast_path", "fold_sample", "fold_sample_plain", "positions_from_gpos"]
+__all__ = [
+    "edge_positions",
+    "fits_fast_path",
+    "fold_sample",
+    "fold_sample_plain",
+    "positions_from_gpos",
+]
 
 #: levels in the fold the dispatcher sizes (as in the JAX package)
 TIME_WINDOW = 4
@@ -87,6 +93,25 @@ def fold_sample_plain(data: torch.Tensor, post, posz, posy, posx) -> torch.Tenso
                     w = ((wt * wz) * wy) * wx
                     acc = acc + torch.where(ok, w * v, 0.0)
     return acc
+
+
+def edge_positions(shape4, n, seed=0, device="cpu"):
+    """Positions that reach K1's edge cases, mixed with uniform ones: lanes
+    at x0 = X - 1 and at x0 % 4 == 3, corners just outside each axis, far-out
+    positions (+-1e30, -10) and NaN."""
+    g = torch.Generator().manual_seed(seed)
+    pos = [torch.rand(n, generator=g) * (d + 1.0) - 1.0 for d in shape4]
+    X = shape4[3]
+    frac = torch.rand(n, generator=g)
+    quad = torch.randint(0, max(X // 4, 1), (n,), generator=g) * 4 + 3
+    pos[3][0::7] = (X - 1) + frac[0::7]
+    pos[3][1::7] = quad[1::7].to(torch.float32) + frac[1::7]
+    pos[0][2::13] = float("nan")
+    pos[1][3::17] = 1e30
+    pos[2][4::19] = -1e30
+    pos[3][5::23] = -10.0
+    pos[3][6::29] = float("nan")
+    return [p.to(device) for p in pos]
 
 
 def _check(name, t, dtype, device, shape=None):

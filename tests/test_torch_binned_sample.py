@@ -169,7 +169,16 @@ def test_sort_key_groups_bins():
     assert key[2] != key[0]
 
 
+def _same_bits(a, b):
+    return a.shape == b.shape and bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
 def test_kernel_matches_plain_on_card():
+    """Bit for bit on the card: sorted lanes; scripted window sequences (z
+    moves of 0, 1, 2 and WZ or more planes, a change of half mid-chunk,
+    consecutive chunks with equal origins, dead chunks) by bulk copies
+    (X = 520) and by the scalar staging path (X = 517); planned lanes with
+    X % 4 != 0 and dead chunks."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     shape4 = (2, 16, 64, 512)
@@ -182,3 +191,124 @@ def test_kernel_matches_plain_on_card():
     got = tbs.slab_sample(data, plan)
     torch.cuda.synchronize()
     assert torch.equal(got, tbs.slab_sample_plain(data, plan))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for X in (520, 517):
+        plan = tbs.edge_plans(X, device="cuda")
+        data = torch.as_tensor(rng.uniform(-1, 1, (3, 12, 40, X)).astype(np.float32), device="cuda")
+        staged = torch.zeros(1, dtype=torch.int64, device="cuda")
+        assert _same_bits(tbs.slab_sample(data, plan, staged), tbs.slab_sample_plain(data, plan)), X
+        # the copies the kernel issued are what the host counts
+        assert int(staged) == tbs.staged_bytes(plan, sms), X
+    shape4 = (2, 6, 40, 1101)
+    data = torch.as_tensor(rng.uniform(-1, 1, shape4).astype(np.float32), device="cuda")
+    n = 20 * tbs.CHUNK
+    pos = _sort_positions(_random_positions(rng, n, shape4), shape4)
+    tg = {ax: {"index": torch.as_tensor(i, device="cuda"),
+               "bcoord": torch.as_tensor(b, device="cuda")} for ax, (i, b) in pos.items()}
+    tg["active"] = torch.arange(n, device="cuda") < n - 3 * tbs.CHUNK
+    plan = tbs._build_plan(shape4, tg)
+    assert _same_bits(tbs.slab_sample(data, plan), tbs.slab_sample_plain(data, plan))
+
+
+# ---------------------------------------------------------------------------
+# staged_bytes: what the kernel stages, counted on the host
+# ---------------------------------------------------------------------------
+
+
+def _windows_brute(plan):
+    """Per sub-block ((t0, y, x) origin, z origin), or None in a dead chunk."""
+    out = []
+    for q in range(plan["G"] * plan["NS"]):
+        g = q // plan["NS"]
+        if not int(plan["live"][g]):
+            out.append(None)
+            continue
+        h = "2" if int(plan["shalf"][q]) else "1"
+        o = {a: int(plan["origins"][a + h][g]) for a in "zyx"}
+        out.append(((int(plan["t0"][g]), o["y"], o["x"]), o["z"] + int(plan["z0w"][q])))
+    return out
+
+
+def _staged_brute(plan, sms):
+    """The kernel's staging rule, plane by plane: groups of at most
+    GROUP_SUBBLOCKS consecutive live sub-blocks of one origin spanning at
+    most ring_planes planes; a group stages the (origin, plane) pairs the
+    previous group of its block did not hold."""
+    WT, _, SY, SX = plan["geom"][:4]
+    WZ, RZ = plan["WZ"], tbs.ring_planes(plan["geom"])
+    wins = _windows_brute(plan)
+    G, NS = plan["G"], plan["NS"]
+    blocks = tbs.k2_grid(G, sms)
+    staged = 0
+    for b in range(blocks):
+        # the kernel's block b walks chunks [b G / blocks, (b + 1) G / blocks)
+        blk, held, k = wins[b * G // blocks * NS:(b + 1) * G // blocks * NS], set(), 0
+        while k < len(blk):
+            if blk[k] is None:
+                k += 1
+                continue
+            members = [blk[k]]
+            while len(members) < tbs.GROUP_SUBBLOCKS and k + len(members) < len(blk):
+                nxt = blk[k + len(members)]
+                if nxt is None or nxt[0] != members[0][0]:
+                    break
+                zs = [z for _, z in members + [nxt]]
+                if max(zs) + WZ - min(zs) > RZ:
+                    break
+                members.append(nxt)
+            span = {(members[0][0], z) for _, z0 in members for z in range(z0, z0 + WZ)}
+            staged += len(span - held)
+            held = span
+            k += len(members)
+    return 4 * WT * SY * SX * staged
+
+
+def _staged_whole_windows(plan):
+    """What a kernel stages that loads a whole window at each chunk's first
+    live sub-block and at every change of (half, z0w) inside a chunk."""
+    WT, _, SY, SX = plan["geom"][:4]
+    NS = plan["NS"]
+    keys = list(zip(plan["shalf"].tolist(), plan["z0w"].tolist()))
+    n = 0
+    for g in range(plan["G"]):
+        if int(plan["live"][g]):
+            ks = keys[g * NS:(g + 1) * NS]
+            n += 1 + sum(a != b for a, b in zip(ks, ks[1:]))
+    return 4 * WT * plan["WZ"] * SY * SX * n
+
+
+def _plans():
+    rng = np.random.default_rng(13)
+    out = {"scripted": tbs.edge_plans(520)}
+    for shape4, dead in (((2, 16, 64, 512), 0), ((3, 12, 40, 640), 2)):
+        n = 24 * tbs.CHUNK
+        pos = _sort_positions(_random_positions(rng, n, shape4), shape4)
+        tg = {ax: {"index": torch.as_tensor(i), "bcoord": torch.as_tensor(b)}
+              for ax, (i, b) in pos.items()}
+        tg["active"] = torch.arange(n) < n - dead * tbs.CHUNK
+        out[f"sorted{shape4}"] = tbs._build_plan(shape4, tg)
+    return out
+
+
+@pytest.mark.parametrize("sms", [1000, 4, 2, 1])
+@pytest.mark.parametrize("name", ["scripted", "sorted(2, 16, 64, 512)", "sorted(3, 12, 40, 640)"])
+def test_staged_bytes_matches_brute_force(name, sms):
+    """One chunk a block (1000 SMs) down to two blocks for the whole plan."""
+    plan = _plans()[name]
+    staged = tbs.staged_bytes(plan, sms)
+    assert staged == _staged_brute(plan, sms)
+    # never more than restaging every window change
+    assert 0 < staged <= _staged_whole_windows(plan)
+
+
+def test_staged_bytes_full_window_when_every_sub_block_changes_half():
+    """Halves with different y origins, alternating at every sub-block:
+    every sub-block loads its whole window."""
+    G, NS = 6, tbs.CHUNK // tbs.LANE
+    geom = (2, 8, 16, 128)
+    live = [1, 1, 0, 1, 1, 1]
+    plan = tbs.scripted_plan((3, 12, 60, 512), geom, [0] * G, [(0, 4, 64)] * G,
+                             [(2, 30, 64)] * G, [0, 1] * (G * NS // 2), [1] * (G * NS), live)
+    window = 4 * 2 * 4 * 16 * 128
+    for sms in (1000, 1):
+        assert tbs.staged_bytes(plan, sms) == sum(live) * NS * window == _staged_whole_windows(plan)

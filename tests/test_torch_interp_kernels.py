@@ -101,6 +101,10 @@ def test_plain_handles_edges():
 
 
 def test_kernel_matches_plain_on_card():
+    """Bit for bit on the card (NaN lanes included): uniform lanes at the K1
+    path's shape, then edge positions (x0 = X - 1, x0 % 4 == 3, far-out and
+    NaN) on degenerate T and Z axes and X % 4 != 0, each field also with a
+    base off 16-byte alignment (the kernel's 4-byte load path)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     rng = np.random.default_rng(3)
@@ -111,3 +115,15 @@ def test_kernel_matches_plain_on_card():
     torch.cuda.synchronize()
     want = tik.fold_sample_plain(data, *pos)
     assert torch.equal(got, want)
+    for i, shape in enumerate([(1, 1, 8, 8), (3, 4, 10, 130), (1, 3, 16, 67), (4, 1, 16, 64),
+                               (24, 1, 256, 1000)]):
+        data = torch.as_tensor(rng.uniform(-1, 1, shape).astype(np.float32), device="cuda")
+        flat = torch.empty(data.numel() + 1, device="cuda")
+        shifted = flat[1:].view(shape)
+        shifted.copy_(data)
+        pos = tik.edge_positions(shape, 20000, seed=i, device="cuda")
+        want = tik.fold_sample_plain(data, *pos)
+        for field in (data, shifted):
+            got = tik.fold_sample(field, *pos)
+            assert torch.equal(torch.isnan(got), torch.isnan(want)), shape
+            assert torch.equal(got.nan_to_num(), want.nan_to_num()), shape
