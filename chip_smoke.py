@@ -5,6 +5,10 @@ Run from the root of a checkout, on a machine with a card and nvcc:
 
     python3 chip_smoke.py
 
+``python3 chip_smoke.py --k3-ab PATH`` runs instead K3 of this checkout
+against an earlier ``csrc/fused_rk4.cu`` copied to PATH (``k3_ab``): both
+held to the plain version, timed in turns, with their SASS counts.
+
 Phases (each raises on failure; there is no CPU fallback; every launch
 counter is set to 0 just before a path runs and read just after):
 
@@ -32,7 +36,9 @@ counter is set to 0 just before a path runs and read just after):
 7. K3 (fused C-grid RK4 step) against its plain version at 2^23 lanes on
    rows of the config-5 grid (a MOi-shaped global curvilinear C-grid,
    (T, Z, Y, X) = (2, 50, 1500, 2000), U/V filled on the card), NaN lanes
-   and invalid rows included;
+   and invalid rows included, then bit for bit on ragged last blocks and
+   unaligned planes; with its hit-path SASS count a lane and the lanes it
+   redid with the exact division and square root;
 8. the C-grid engine path end to end: 2^23 particles at z = 1 m through
    ``ParticleSet.execute(AdvectionRK4)`` at dt 600 s for 6 steps on the
    config-5 fieldset (curvilinear search, stage cache);
@@ -418,7 +424,11 @@ def edge_phase(torch, dev):
 #: f32 operations per lane of one K3 step, counting each add, multiply,
 #: compare, select, division, square root and trig call as one: per stage
 #: about 162 adds/multiplies/compares, 9 divisions, 5 square roots and 9 trig
-#: calls, plus about 30 for the RK4 combination
+#: calls, plus about 30 for the RK4 combination. The bound keeps this
+#: definition; on the card each trig call, division and square root is a
+#: sequence of 10-30 instructions, so k3_phase prints beside it the built
+#: kernel's hit-path SASS count a lane (ops/sass.hit_path) and the time that
+#: count takes to issue at 128 lanes a clock an SM (k3_sass)
 K3_OPS_PER_LANE = 4 * (162 + 9 + 5 + 9) + 30
 #: bytes a K3 lane must move: row planes 0-14 and 16-25 (plane 15 is the cell
 #: table's zero pad column, which no stage reads), uv planes 0-7 and state
@@ -464,8 +474,52 @@ def k3_inputs(torch, fs, n, seed, dt=600.0):
     return rowsT, uvT, state.contiguous()
 
 
+#: K3 lane counts with a ragged last block of 256 threads (1, 255, 259, 1380
+#: lanes), and 4096 lanes on planes whose bases are not 16-byte aligned
+K3_EDGE_LANES = (1, 255, 259, 1380)
+#: face values scaled so that a lane's divisions and square roots leave the
+#: fast paths' operand range (2^-80: every lane; 2^-40 and 2^40: near and
+#: past its ends), and every 7th lane with zero velocity (a land cell)
+K3_REDO_CASES = ((2.0**-80, 0), (2.0**-40, 0), (2.0**40, 0), (1.0, 7))
+
+
+def k3_edges(torch, fs, seed=12, dt=600.0):
+    """K3 bit for bit against its plain version at ``K3_EDGE_LANES``, on
+    unaligned planes, and on 65536 lanes of each ``K3_REDO_CASES`` (which
+    take the exact redo: its lanes are counted by the kernel); NaN lanes and
+    invalid rows as ``k3_inputs`` makes them."""
+    from parcels_tpu_torch.ops.fused_rk4 import fused_rk4_step, fused_rk4_step_plain
+
+    args = (fs.gridset[0].spec.deg2m, 1.0 / float(fs.gridset[0].time[1]), dt)
+    cases = [(n, False, 1.0, 0) for n in K3_EDGE_LANES] + [(4096, True, 1.0, 0)]
+    cases += [(1 << 16, False, scale, every) for scale, every in K3_REDO_CASES]
+    seen = []
+    for n, shifted, scale, every in cases:
+        rowsT, uvT, state = k3_inputs(torch, fs, n, seed, dt)
+        uvT = uvT * scale
+        if every:
+            uvT[:, ::every] = 0.0
+        planes = (rowsT, uvT, state)
+        if shifted:
+            planes = tuple(unaligned(torch, a) for a in planes)
+        counter = torch.zeros(1, dtype=torch.int64, device=rowsT.device)
+        out = fused_rk4_step(*planes, *args, redone=counter)
+        torch.cuda.synchronize()
+        ref = fused_rk4_step_plain(*planes, *args)
+        same = int(((out == ref) | (torch.isnan(out) & torch.isnan(ref))).all(dim=0).sum())
+        name = (f"{n}{' unaligned' if shifted else ''}"
+                f"{f' uv x {scale:g}' if scale != 1.0 else ''}"
+                f"{f' zero uv every {every}th' if every else ''}")
+        if same != n:
+            raise AssertionError(f"K3 at {name} lanes differs from its plain version on "
+                                 f"{n - same} lanes")
+        seen.append(f"{name}: bitwise-equal lanes {same}, redone {int(counter)}")
+    return seen
+
+
 def k3_phase(torch, fs, n, seed=11, dt=600.0):
     """K3 against its plain version on the card; returns the kernel line."""
+    from parcels_tpu_torch.ops import _build
     from parcels_tpu_torch.ops.fused_rk4 import fused_rk4_step, fused_rk4_step_plain
 
     rowsT, uvT, state = k3_inputs(torch, fs, n, seed, dt)
@@ -490,17 +544,127 @@ def k3_phase(torch, fs, n, seed=11, dt=600.0):
         raise AssertionError(f"K3 disagrees with its plain version: max abs err {err} deg, "
                              f"{miss_diff} miss flags differ")
     del ref
+    counter = torch.zeros(1, dtype=torch.int64, device=rowsT.device)
+    fused_rk4_step(rowsT, uvT, state, *args, redone=counter)
+    redone = int(counter)
     ms = cuda_ms(torch, lambda: fused_rk4_step(rowsT, uvT, state, *args))
+    queued_ms = cuda_ms(torch, lambda: fused_rk4_step(rowsT, uvT, state, *args), queued=True)
     plain_ms = cuda_ms(torch, lambda: fused_rk4_step_plain(rowsT, uvT, state, *args),
                        reps=3, warmup=1)
     bound_ms, bound_by = bound(n * K3_BYTES_PER_LANE, n * K3_OPS_PER_LANE)
+    del rowsT, uvT, state, out
+    edges = k3_edges(torch, fs)
+    sass = {k: {f: v[f] for f in ("count", "issue_ms", "clock_mhz")}
+            for k, v in k3_sass(torch, _build.library("fused_rk4"), n).items()}
     log(f"[K3] lanes {n}: max abs err x/y {err:.3g} deg, bitwise-equal lanes {bitwise} of {n}, "
-        f"miss flags differing {miss_diff}, miss share {miss_share:.4f}; kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
-        f"{K3_BYTES_PER_LANE} B and {K3_OPS_PER_LANE} ops a lane); no single library call "
-        f"computes this step")
+        f"miss flags differing {miss_diff}, miss share {miss_share:.4f}, lanes redone with the "
+        f"exact division and root {redone} (counted by the kernel); kernel {ms:.4f} ms "
+        f"({queued_ms:.4f} ms queued behind a spin: device time alone), plain {plain_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms ({bound_by}, {K3_BYTES_PER_LANE} B and {K3_OPS_PER_LANE} ops a "
+        f"lane); hit-path SASS a lane and its issue time at the top SM clock: {sass}; ptxas: "
+        f"{ptxas_lines('fused_rk4')}; edge cases: {edges}; no single library call computes "
+        f"this step")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=None)
+
+
+def max_sm_clock_mhz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    return float(out.split()[0])
+
+
+def k3_sass(torch, lib, n, dump=None):
+    """Hit-path SASS instructions a lane of each K3 kernel in ``lib``
+    (``ops/sass.hit_path``) and the time they take to issue on ``n`` lanes
+    at the card's top SM clock; with ``dump``, the SASS is written there."""
+    from parcels_tpu_torch.ops import sass
+
+    text = sass.sass_of(lib)
+    if dump is not None:
+        dump.parent.mkdir(parents=True, exist_ok=True)
+        dump.write_text(text)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = max_sm_clock_mhz()
+    out = {}
+    for name, items in sass.functions(text).items():
+        hp = sass.hit_path(items)
+        out[name] = dict(count=hp["count"], reachable=hp["reachable"],
+                         issue_ms=sass.issue_ms(hp["count"], n, sms, mhz), clock_mhz=mhz,
+                         top_ops=dict(list(hp["by_op"].items())[:14]))
+    return out
+
+
+def k3_ab(torch, tp, parent_src):
+    """K3 of this tree against an earlier K3 (``parent_src``, a copy of its
+    csrc/fused_rk4.cu) at phase 7's 2^23 lanes, in turns (parent, this
+    tree, this tree, parent), each read back to back and queued; both held
+    bit for bit to the plain version; the registers, stack frame and
+    hit-path SASS count of both. Writes chiprun_out/k3_ab.json."""
+    import ctypes
+    from pathlib import Path
+
+    from parcels_tpu_torch.ops import _build
+    from parcels_tpu_torch.ops.fused_rk4 import fused_rk4_step, fused_rk4_step_plain
+
+    P, F = ctypes.c_void_p, ctypes.c_float
+    n = CONFIG5_LANES
+    lib_new = _build.library("fused_rk4")
+    lib_old = _build.build_file("fused_rk4_parent", parent_src)
+    old = _build.load_symbol(lib_old, "fused_rk4_launch",
+                             [P, P, P, P, ctypes.c_longlong, F, F, F, P])
+    log(f"[K3 A/B] ptxas: this tree {ptxas_lines('fused_rk4')}, parent "
+        f"{ptxas_lines('fused_rk4_parent')}")
+    fs5 = config5_fieldset(torch, tp, "cuda")
+    fill_velocities(torch, fs5)
+    rowsT, uvT, state = k3_inputs(torch, fs5, n, 11)
+    spec = fs5.gridset[0].spec
+    args = (spec.deg2m, 1.0 / float(fs5.gridset[0].time[1]), 600.0)
+
+    def parent():
+        out = torch.empty((8, n), device=rowsT.device)
+        f32 = [float(np.float32(a)) for a in args]
+        err = old(rowsT.data_ptr(), uvT.data_ptr(), state.data_ptr(), out.data_ptr(), n, *f32,
+                  torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"parent K3 launch failed with cudaError {err}")
+        return out
+
+    def new():
+        return fused_rk4_step(rowsT, uvT, state, *args)
+
+    ref = fused_rk4_step_plain(rowsT, uvT, state, *args)
+    res = {"card": nvidia_smi(), "lanes": n, "parent_src": str(parent_src)}
+    counter = torch.zeros(1, dtype=torch.int64, device=rowsT.device)
+    fused_rk4_step(rowsT, uvT, state, *args, redone=counter)
+    res["new_redone_lanes"] = int(counter)
+    for name, fn in (("parent", parent), ("new", new)):
+        out = fn()
+        torch.cuda.synchronize()
+        same = ((out == ref) | (torch.isnan(out) & torch.isnan(ref))).all(dim=0)
+        res[f"{name}_bitwise_lanes"] = int(same.sum())
+        if int(same.sum()) != n:
+            raise AssertionError(f"K3 ({name}) differs from its plain version on "
+                                 f"{n - int(same.sum())} lanes")
+    del ref, out
+    res["new_edges"] = k3_edges(torch, fs5)
+    del fs5
+    turns = []
+    for name, fn in (("parent", parent), ("new", new), ("new", new), ("parent", parent)):
+        turns.append(dict(kernel=name, ms=cuda_ms(torch, fn),
+                          queued_ms=cuda_ms(torch, fn, queued=True)))
+    res["turns"] = turns
+    outdir = Path("chiprun_out")
+    for name, lib, tag in (("parent", lib_old, "fused_rk4_parent"), ("new", lib_new, "fused_rk4")):
+        res[f"{name}_ptxas"] = [ln.strip() for ln in _build.BUILD_LOG.get(tag, "").splitlines()
+                                if "registers" in ln or "stack frame" in ln]
+        res[f"{name}_sass"] = k3_sass(torch, lib, n, outdir / f"k3_sass_{name}.txt")
+    res["bound_ms"] = bound(n * K3_BYTES_PER_LANE, n * K3_OPS_PER_LANE)[0]
+    outdir.mkdir(exist_ok=True)
+    (outdir / "k3_ab.json").write_text(json.dumps(res, indent=1))
+    log(json.dumps(res))
+    return res
 
 
 def _wrappers():
@@ -1049,6 +1213,9 @@ def main() -> int:
     card = nvidia_smi()
     log(f"[card] {card}; torch {torch.__version__} cuda {torch.version.cuda}")
     dev = torch.device("cuda")
+    if len(sys.argv) == 3 and sys.argv[1] == "--k3-ab":
+        k3_ab(torch, tp, sys.argv[2])
+        return 0
 
     build_s = _build.build_all()
     regs = {k: [ln.strip() for ln in v.splitlines() if "registers" in ln] for k, v in _build.BUILD_LOG.items()}

@@ -49,6 +49,34 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
+def _fillna(arr: np.ndarray, fill_value) -> np.ndarray:
+    """NaN -> fill, skipping the full-size copy for broadcast views.
+
+    ``zero_data`` benchmark fieldsets and constant fields arrive as
+    zero-stride broadcasts of one scalar; materializing them via
+    ``np.nan_to_num`` costs gigabytes of host copies for nothing (minutes on
+    a small-core host at the true MOi resolution)."""
+    if arr.ndim and all(s == 0 for s in arr.strides):
+        v = arr.reshape(-1)[:1]
+        if not (np.issubdtype(arr.dtype, np.floating) and np.isnan(v[0])):
+            return arr
+        return np.broadcast_to(np.asarray(fill_value, dtype=arr.dtype), arr.shape)
+    return np.nan_to_num(arr, nan=fill_value)
+
+
+def _device_copy(data: np.ndarray, device) -> torch.Tensor:
+    """A dense device tensor of ``data``. A zero-stride broadcast crosses
+    to the device as its one element and is expanded there."""
+    def host(a):
+        a = np.ascontiguousarray(a)
+        return a.astype(np.float32, copy=False) if a.dtype.kind == "f" else a
+
+    if data.ndim and all(s == 0 for s in data.strides):
+        one = torch.as_tensor(host(np.array(data.reshape(-1)[:1])), device=device)
+        return one.expand(data.shape).contiguous()
+    return torch.as_tensor(host(data), device=device)
+
+
 def _transpose_to_tzyx(da: xr.DataArray, metadata) -> np.ndarray:
     """Transpose/expand a DataArray of any shape into dense (T, Z, Y, X) numpy."""
     dim_to_axis = metadata.dim_to_axis() | {"time": "T"}
@@ -252,7 +280,7 @@ class FieldSet:
         fs = cls(device=device)
         scalar_fields: dict[str, Field] = {}
         for varname in data_vars:
-            arr = np.nan_to_num(_transpose_to_tzyx(ds[varname], metadata), nan=fill_value)
+            arr = _fillna(_transpose_to_tzyx(ds[varname], metadata), fill_value)
             f = Field(str(varname), arr, grid, interp_method=XLinear())
             scalar_fields[str(varname)] = f
             fs.add_field(f)
@@ -289,10 +317,7 @@ class FieldSet:
         }
         for name, f in self._fields.items():
             if isinstance(f, Field):
-                data = f.data.astype(np.float32, copy=False) if f.data.dtype.kind == "f" else f.data
-                farrays["fields"][name] = torch.as_tensor(
-                    np.ascontiguousarray(data), device=self.device
-                )
+                farrays["fields"][name] = _device_copy(f.data, self.device)
         from parcels_tpu_torch.ops.stagecache import attach_derived_tables
 
         attach_derived_tables(self, farrays)

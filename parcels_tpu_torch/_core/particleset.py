@@ -34,9 +34,10 @@ from parcels_tpu_torch._core.warnings_ import KernelWarning, ParticleSetWarning
 
 __all__ = ["ParticleSet", "state_from_numpy"]
 
-#: engine modes of the JAX package that belong to later slices of the port
+#: engine modes of the JAX package that belong to later slices of the port.
+#: ``colgather`` is accepted in every mode: its one-hot reduce returns exactly
+#: the gathered value, so the port's plain gathers give its results
 _LATER_SLICE_OPTIONS = {
-    "colgather": "the remaining-interpolators slice",
     "uxcol": "the unstructured-mesh slice",
     "uxcache": "the unstructured-mesh slice",
 }

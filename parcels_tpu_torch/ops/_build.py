@@ -18,7 +18,7 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["KERNEL_SOURCES", "build_all", "load"]
+__all__ = ["KERNEL_SOURCES", "build_all", "build_file", "library", "load", "load_symbol"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -46,7 +46,7 @@ KERNEL_SOURCES = {
     "fused_rk4": (
         "fused_rk4.cu",
         "fused_rk4_launch",
-        [_P, _P, _P, _P, ctypes.c_longlong, _F, _F, _F, _P],
+        [_P, _P, _P, _P, ctypes.c_longlong, _F, _F, _F, _P, _P],
     ),
     "flat_rk4": (
         "flat_rk4.cu",
@@ -68,39 +68,41 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src, _, _ = KERNEL_SOURCES[name]
+    return _keyed(name, CSRC / KERNEL_SOURCES[name][0])
+
+
+def _keyed(tag: str, src: Path) -> Path:
+    """The library of ``src``, keyed by the flags, the source and the shared headers."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in [CSRC / src, *sorted(CSRC.glob("*.cuh"))]:
+    for f in [src, *sorted(CSRC.glob("*.cuh"))]:
         h.update(f.name.encode())
         h.update(f.read_bytes())
-    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"lib{tag}_{h.hexdigest()[:16]}.so"
 
 
-def build_all(names=None) -> float:
-    """Build every missing library in parallel; returns the wall seconds."""
+def _build(jobs) -> float:
+    """Compile (tag, source, library) jobs in parallel, one nvcc each;
+    returns the wall seconds. Raises if any fails."""
     import time
 
-    names = list(KERNEL_SOURCES) if names is None else list(names)
-    todo = [n for n in names if not _lib_path(n).exists()]
     t0 = time.perf_counter()
-    if not todo:
+    if not jobs:
         return 0.0
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = []
-    for n in todo:
-        out = _lib_path(n)
+    for tag, src, out in jobs:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / KERNEL_SOURCES[n][0])]
-        procs.append((n, out, tmp, subprocess.Popen(
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, str(src)]
+        procs.append((tag, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     failed = []
-    for n, out, tmp, p in procs:
+    for tag, out, tmp, p in procs:
         log, _ = p.communicate()
-        BUILD_LOG[n] = log
+        BUILD_LOG[tag] = log
         if p.returncode != 0:
-            failed.append(f"{n}:\n{log}")
+            failed.append(f"{tag}:\n{log}")
             os.unlink(tmp)
         else:
             os.replace(tmp, out)
@@ -109,17 +111,45 @@ def build_all(names=None) -> float:
     return time.perf_counter() - t0
 
 
+def build_all(names=None) -> float:
+    """Build every missing library in parallel; returns the wall seconds."""
+    names = list(KERNEL_SOURCES) if names is None else list(names)
+    return _build([(n, CSRC / KERNEL_SOURCES[n][0], _lib_path(n)) for n in names
+                   if not _lib_path(n).exists()])
+
+
+def build_file(tag: str, src) -> Path:
+    """Build a kernel source at any path (an earlier version of a kernel,
+    for a reading beside the current one) into its own library; its
+    compiler output goes to ``BUILD_LOG[tag]``."""
+    src = Path(src).resolve()
+    out = _keyed(tag, src)
+    if not out.exists():
+        _build([(tag, src, out)])
+    return out
+
+
+def library(name: str) -> Path:
+    """The library of kernel ``name``, building it if needed."""
+    path = _lib_path(name)
+    if not path.exists():
+        build_all([name])
+    return path
+
+
 def load(name: str):
     """The C launcher of kernel ``name``, building its library if needed."""
     fn = _LOADED.get(name)
     if fn is None:
-        path = _lib_path(name)
-        if not path.exists():
-            build_all([name])
-        lib = ctypes.CDLL(str(path))
         _, sym, argtypes = KERNEL_SOURCES[name]
-        fn = getattr(lib, sym)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn = load_symbol(library(name), sym, argtypes)
         _LOADED[name] = fn
+    return fn
+
+
+def load_symbol(path: Path, sym: str, argtypes):
+    """A C launcher ``sym`` of the library at ``path``, returning an int."""
+    fn = getattr(ctypes.CDLL(str(path)), sym)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
     return fn

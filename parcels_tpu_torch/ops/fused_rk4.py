@@ -150,12 +150,15 @@ def _check(name, t, planes, n, device):
         raise ValueError(f"{name}: expected shape {(planes, n)}, got {tuple(t.shape)}")
 
 
-def fused_rk4_step(rowsT, uvT, state, deg2m, inv_t1, dt):
+def fused_rk4_step(rowsT, uvT, state, deg2m, inv_t1, dt, redone=None):
     """One fused RK4 step of every lane: (8, n) [x', y', t + dt, dt, miss, 0, 0, 0].
 
     ``rowsT`` (32, n), ``uvT`` (8, n) and ``state`` (8, n) are f32 planes.
     On a CUDA tensor this launches K3 (``fused_rk4_step.launches`` counts
-    the launches); on a CPU tensor it runs the plain version.
+    the launches); on a CPU tensor it runs the plain version. Given
+    ``redone``, a (1,) int64 tensor on the card, K3 adds to it the lanes it
+    ran again with the library's exact division and square root (their
+    operands left the range of its branch-free fast paths).
     """
     if rowsT.device.type == "cpu":
         return fused_rk4_step_plain(rowsT, uvT, state, deg2m, inv_t1, dt)
@@ -168,12 +171,15 @@ def fused_rk4_step(rowsT, uvT, state, deg2m, inv_t1, dt):
     out = torch.empty((STATE_PLANES, n), dtype=torch.float32, device=rowsT.device)
     if n == 0:
         return out
+    if redone is not None and (redone.dtype != torch.int64 or redone.device != rowsT.device
+                               or redone.numel() != 1):
+        raise ValueError("redone: expected a (1,) int64 tensor on the planes' device")
     from parcels_tpu_torch.ops._build import load
 
     launch = load("fused_rk4")
     err = launch(
         rowsT.data_ptr(), uvT.data_ptr(), state.data_ptr(), out.data_ptr(), n,
-        _f32(deg2m), _f32(inv_t1), _f32(dt),
+        _f32(deg2m), _f32(inv_t1), _f32(dt), None if redone is None else redone.data_ptr(),
         torch.cuda.current_stream(rowsT.device).cuda_stream,
     )
     if err != 0:

@@ -290,3 +290,24 @@ def test_repair_matches_script_repair(monkeypatch):
                                    rtol=0, atol=2e-5)
     for k in ("cell", "u4", "v4"):
         np.testing.assert_array_equal(got[k].numpy()[live], np.asarray(ref[k])[live])
+
+
+def test_kernel_matches_plain_on_card():
+    """K3 bit for bit against its plain version, NaN lanes and invalid rows
+    included, with full and ragged last blocks of 256 threads, and with face
+    values that send lanes to its exact redo (tiny, and zero on every 7th
+    lane)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    _, rowsT, uvT, state, args = _inputs()
+    tiny = uvT * np.float32(2.0**-80)
+    land = uvT.copy()
+    land[:, ::7] = 0.0
+    for n, uv in ((N, uvT), (1380, uvT), (259, uvT), (1, uvT), (N, tiny), (N, land)):
+        planes = [torch.as_tensor(np.ascontiguousarray(a[:, :n]), device="cuda")
+                  for a in (rowsT, uv, state)]
+        got = fused_rk4.fused_rk4_step(*planes, *args)
+        torch.cuda.synchronize()
+        want = fused_rk4.fused_rk4_step_plain(*planes, *args)
+        assert torch.equal(torch.isnan(got), torch.isnan(want)), n
+        assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want)), n
