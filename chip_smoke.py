@@ -63,7 +63,27 @@ counter is set to 0 just before a path runs and read just after):
     CROCO sigma-grid RK2 on an idealized CROCO set, and config 3's
     moments at 64K particles; the analytical scheme on the Stommel gyre is
     held on each device to the JAX test's invariants (P conserved, the
-    particles moved) and the card-CPU difference is printed.
+    particles moved) and the card-CPU difference is printed;
+15. (h) the UGRID path at the FESOM2-baroclinic-gyre scale of
+    ``scripts/bench_ux.py``: a Delaunay mesh of 1200 x 1200 nodes
+    (2,875,202 faces, 1,440,000 nodes, 48 interfaces, node-registered
+    solid-body rotation on zf) through ``FieldSet.from_ugrid_conventions``
+    (fails unless the native mesh library loaded; prints the ingest time),
+    2M particles in the middle of the mesh at z = 100 m, AdvectionRK4 at dt
+    120 s for 10 steps in the three tiers: the defaults (fused face rows and
+    the per-face stage cache), ``uxcache="off"``, and ``uxcol="off",
+    uxcache="off"`` (the gather tier); particle-steps/s, the stage cache's
+    miss share per stage and repairs per step, the device-to-host reads
+    per step of the UGRID search and cache, one profiled warm step (host
+    reads, device busy share); the radius of the rotation is held at rtol
+    2e-3 on every lane, the tiers agree on every lane's state and on
+    positions at rtol 1e-5;
+16. (i) card against CPU on the UGRID path: a 200 x 200-node mesh (79,202
+    faces, above ``uxcol.MIN_FACES``), 64K particles, AdvectionRK4 at dt 120
+    s for 6 steps, the card's defaults against the CPU's ``uxcol="force",
+    uxcache="force"``: identical states, positions within 1e-5 relative on
+    all but at most 0.1 % of lanes (an edge-riding lane may pick the
+    neighbouring face).
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Field data and
@@ -1199,6 +1219,157 @@ def card_cpu_phase(torch, tp, ds_b):
     return k1_slip
 
 
+#: path (h): the FESOM2-baroclinic-gyre scale of scripts/bench_ux.py
+UX_MESH = dict(flow="rotation", placement="node", vertical="zf", nx=1200, ny=1200, nz=48,
+               extent=1e6, maxdepth=1000.0)
+#: its (faces, nodes, interfaces)
+UX_SIZE = (2875202, 1440000, 48)
+UX_LANES = 2_000_000
+UX_STEPS = 10
+UX_TIERS = {
+    "auto": {},
+    "uxcache off": dict(uxcache="off"),
+    "gather": dict(uxcol="off", uxcache="off"),
+}
+
+
+def ux_counts():
+    from parcels_tpu_torch._core.uxgrid import lanes
+    from parcels_tpu_torch.ops.uxcache import ux_cached_eval as ce
+
+    return dict(host_reads=lanes.host_reads, checked=ce.checked_lanes, misses=ce.misses,
+                repairs=ce.repairs, full_evals=ce.full_evals)
+
+
+def ux_seeds(n, extent, seed):
+    rng = np.random.default_rng(seed)
+    return dict(x=rng.uniform(0.3 * extent, 0.7 * extent, n),
+                y=rng.uniform(0.3 * extent, 0.7 * extent, n), z=np.full(n, 100.0),
+                t=np.zeros(n))
+
+
+def ux_run(tp, fs, seeds, steps, dt=120, **opts):
+    """(pset, stats, UGRID counters) of one execute of ``steps`` RK4 steps."""
+    before = ux_counts()
+    pset = tp.ParticleSet(fs, **seeds)
+    pset.execute(tp.AdvectionRK4, dt=np.timedelta64(dt, "s"),
+                 runtime=np.timedelta64(steps * dt, "s"), options=tp.EngineOptions(**opts))
+    after = ux_counts()
+    x, y = pset.x, pset.y
+    if not (x.shape == y.shape == seeds["x"].shape and np.isfinite(x).all()
+            and np.isfinite(y).all()):
+        raise AssertionError("UGRID path: positions are not finite of the expected shape")
+    if int((pset.state >= tp.StatusCode.Error).sum()):
+        raise AssertionError("UGRID path: particles ended in an error state")
+    return pset, pset.last_run_stats, {k: after[k] - before[k] for k in after}
+
+
+def profile_ux_step(torch, tp, fs, seeds, dt=120):
+    """One warm RK4 step of the default tier under torch.profiler: its host
+    reads (``aten::_local_scalar_dense`` and ``aten::nonzero`` calls, each a
+    device-to-host read), the device busy share of its wall time and the
+    largest device entries (ms)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    pset = tp.ParticleSet(fs, **seeds)
+    pset.execute(tp.AdvectionRK4, dt=np.timedelta64(dt, "s"), runtime=np.timedelta64(dt, "s"))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        pset.execute(tp.AdvectionRK4, dt=np.timedelta64(dt, "s"),
+                     runtime=np.timedelta64(dt, "s"))
+        torch.cuda.synchronize()
+    wall = pset.last_run_stats["wall_s"]
+    reads, by_name = {}, {}
+    for ev in prof.key_averages():
+        if ev.key in ("aten::_local_scalar_dense", "aten::nonzero"):
+            reads[ev.key] = ev.count
+        if str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            by_name[ev.key] = by_name.get(ev.key, 0.0) + getattr(ev, "self_device_time_total", 0.0)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return dict(wall_s=wall, host_reads=reads,
+                device_busy_share=sum(by_name.values()) * 1e-6 / wall,
+                top_device_ms={k[:60]: round(v * 1e-3, 3) for k, v in top})
+
+
+def ux_phase(torch, tp):
+    """Phase 15: path (h), the UGRID path at FESOM2 scale in three tiers."""
+    from parcels_tpu_torch import native
+    from parcels_tpu_torch.datasets import delaunay_flow_dataset
+
+    t0 = time.perf_counter()
+    if native.get_lib() is None:
+        raise AssertionError("the native mesh library did not load: the numpy fallbacks "
+                             "take many minutes at this scale")
+    ds = delaunay_flow_dataset(**UX_MESH)
+    t_ds = time.perf_counter() - t0
+    fs = tp.FieldSet.from_ugrid_conventions(ds, mesh="flat")
+    grid = fs.gridset[0]
+    fs.device_arrays()
+    torch.cuda.synchronize()
+    ingest = time.perf_counter() - t0
+    if (grid.spec.n_face, grid.spec.n_node, grid.spec.nz) != UX_SIZE:
+        raise AssertionError(f"UGRID mesh {grid!r} is not the FESOM2-scale mesh")
+    log(f"[ux ingest] {grid!r}: {ingest:.1f} s ({t_ds:.1f} s Delaunay and fields, "
+        f"{ingest - t_ds:.1f} s FieldSet.from_ugrid_conventions with the native raster and "
+        f"adjacency, and the device copy)")
+    del ds
+    extent = UX_MESH["extent"]
+    c = extent / 2
+    seeds = ux_seeds(UX_LANES, extent, seed=2)
+    r0 = np.hypot(seeds["x"] - c, seeds["y"] - c)
+    runs = {}
+    for tier, opts in UX_TIERS.items():
+        _, s1, d1 = ux_run(tp, fs, seeds, 1, **opts)
+        pset, s, d = ux_run(tp, fs, seeds, UX_STEPS, **opts)
+        order = np.argsort(pset.particle_id)
+        runs[tier] = (pset.x[order], pset.y[order], pset.state[order])
+        del pset
+        torch.cuda.empty_cache()
+        r1 = np.hypot(runs[tier][0] - c, runs[tier][1] - c)
+        np.testing.assert_allclose(r1, r0, rtol=2e-3)
+        checked = d["checked"]
+        log(f"[e2e ux {tier}] {UX_LANES} particles RK4 dt 120 s {UX_STEPS} steps: "
+            f"particle_steps_per_s {s['particle_steps_per_s']} wall_s {s['wall_s']}; "
+            f"a first step alone: wall_s {s1['wall_s']}, {d1['host_reads']} UGRID host reads; "
+            f"UGRID host reads per step {d['host_reads'] / UX_STEPS:.1f}; stage cache: miss "
+            f"share per stage {d['misses'] / checked if checked else 0.0:.5f}, repairs per step "
+            f"{d['repairs'] / UX_STEPS:.1f}, full-batch evals {d['full_evals']}; radius held "
+            f"within {np.abs(r1 / r0 - 1).max():.3g} relative")
+    ref = runs["auto"]
+    for got in runs.values():
+        np.testing.assert_array_equal(got[2], ref[2])
+        for a, b in zip(got[:2], ref[:2]):
+            np.testing.assert_allclose(a, b, rtol=1e-5)
+    dmax = max(float(np.abs(a - b).max()) for got in runs.values()
+               for a, b in zip(got[:2], ref[:2]))
+    log(f"[e2e ux] the three tiers agree: states equal, max |position difference| {dmax:.3g} m")
+    prof = profile_ux_step(torch, tp, fs, seeds)
+    log(f"[e2e ux profile] one warm RK4 step of the default tier, {UX_LANES} particles: {prof}")
+    del fs
+    torch.cuda.empty_cache()
+
+
+def ux_card_cpu_phase(tp):
+    """Phase 16: path (i), the card's default tiers against the CPU's forced ones."""
+    from parcels_tpu_torch.datasets import delaunay_flow_dataset
+
+    ds = delaunay_flow_dataset(**{**UX_MESH, "nx": 200, "ny": 200})
+    seeds = ux_seeds(1 << 16, UX_MESH["extent"], seed=4)
+    fs_card = tp.FieldSet.from_ugrid_conventions(ds, mesh="flat")
+    a, _, da = ux_run(tp, fs_card, seeds, 6)
+    if not da["checked"] or "face_table" not in fs_card.device_arrays()["grids"][0]:
+        raise AssertionError("the card's defaults did not run the fused rows and the stage cache")
+    fs_cpu = tp.FieldSet.from_ugrid_conventions(ds, mesh="flat", device="cpu")
+    b, _, _ = ux_run(tp, fs_cpu, seeds, 6, uxcol="force", uxcache="force")
+    np.testing.assert_array_equal(a.state, b.state)
+    rel = np.maximum(np.abs(a.x - b.x) / np.abs(b.x), np.abs(a.y - b.y) / np.abs(b.y))
+    over = float((rel > 1e-5).mean())
+    if over > 1e-3:
+        raise AssertionError(f"UGRID card vs CPU: {over:.4%} of lanes beyond 1e-5 relative")
+    log(f"[card vs cpu ux] {fs_card.gridset[0]!r}, 64K particles, 6 RK4 steps: states equal, "
+        f"max relative position difference {rel.max():.3g}, share beyond 1e-5 {over:.5f}")
+
+
 def main() -> int:
     import torch
 
@@ -1374,6 +1545,16 @@ def main() -> int:
     l12 = config3_phase(tp)
     l13 = em_phase(torch, tp, ds_b)
     l14 = card_cpu_phase(torch, tp, ds_b)
+
+    # 15-16: the UGRID path at FESOM2 scale, then card against CPU on it. The
+    # path has no hand-written kernel (the JAX package's is XLA): K1-K4 stay at 0
+    zero_counts()
+    ux_phase(torch, tp)
+    l15 = counts()
+    log(f"[e2e ux] launches of K1-K4 on path (h): {l15}")
+    if any(l15.values()):
+        raise AssertionError("path (h) launched a structured-grid kernel")
+    ux_card_cpu_phase(tp)
 
     kernels = [
         dict(name="fold_sample", route="cuda", source="parcels_tpu_torch/csrc/fold_sample.cu",

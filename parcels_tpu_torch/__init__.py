@@ -3,8 +3,10 @@
 Same public names as ``parcels_tpu`` for what the port has landed so far:
 structured rectilinear and curvilinear fieldsets on A- and C-grids (with
 the NEMO and CROCO converters ``convert.nemo_to_sgrid`` and
-``convert.croco_to_sgrid`` and the C-grid stage cache), the structured
-interpolators, ``ParticleSet.execute`` with the advection, advection-diffusion,
+``convert.croco_to_sgrid`` and the C-grid stage cache), unstructured
+triangular UGRID fieldsets (``FieldSet.from_ugrid_conventions``, with the
+FESOM2 and ICON converters, the fused face-row tier and the per-face stage
+cache), the structured and UGRID interpolators, ``ParticleSet.execute`` with the advection, advection-diffusion,
 analytical and CROCO sigma-grid kernels, and Parquet trajectory output. Field sampling runs
 through hand-written CUDA kernels for Hopper (``ops/``) on the card, and
 through their plain PyTorch versions for tensors on the CPU.
@@ -24,6 +26,7 @@ This package never imports JAX or ``parcels_tpu``.
 """
 
 from parcels_tpu_torch import convert, kernels
+from parcels_tpu_torch._core.basegrid import BaseGrid
 from parcels_tpu_torch._core.field import Field, VectorField
 from parcels_tpu_torch._core.fieldset import FieldSet
 from parcels_tpu_torch._core.grid import XGrid
@@ -44,6 +47,7 @@ from parcels_tpu_torch._core.statuscodes import (
     StatusCode,
 )
 from parcels_tpu_torch._core.timeutils import CFDatetime, TimeInterval
+from parcels_tpu_torch._core.uxgrid import UxGrid
 from parcels_tpu_torch._core.warnings_ import (
     FieldEvalWarning,
     FieldSetWarning,
@@ -93,6 +97,7 @@ __all__ = [
     "AdvectionRK4_3D",
     "AdvectionRK45",
     "AllParcelsErrorCodes",
+    "BaseGrid",
     "CFDatetime",
     "CGrid_Tracer",
     "CGrid_Velocity",
@@ -121,6 +126,7 @@ __all__ = [
     "SphericalMesh",
     "StatusCode",
     "TimeInterval",
+    "UxGrid",
     "Variable",
     "VectorField",
     "XConstantField",

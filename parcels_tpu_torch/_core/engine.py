@@ -52,7 +52,7 @@ def _pick_sort_field(fieldset):
     best = None
     for f in fieldset.fields.values():
         cand = f.U if isinstance(f, VectorField) else f
-        if not isinstance(cand, Field):
+        if not isinstance(cand, Field) or cand.data.ndim != 4:
             continue
         shape = tuple(cand.data.shape)
         if fits_fast_path(shape) or not binned_usable(shape):

@@ -1,7 +1,8 @@
 """Field / VectorField: host containers + device sampling views (torch).
 
 Port of the JAX package's ``_core/field.py``. Host side (``Field``,
-``VectorField``) wraps the ingested (T, Z, Y, X) numpy data and its grid;
+``VectorField``) wraps the ingested numpy data, (T, Z, Y, X) on structured
+grids and (T, Z, N) on unstructured ones, and its grid;
 device side (``FieldView``, ``VectorFieldView``) pairs the static spec with
 the field tensors. Sampling semantics mirror the reference: search -> ei
 cache -> state escalation -> interpolate -> NaN state -> zero out-of-bounds
@@ -14,7 +15,8 @@ import numpy as np
 import torch
 
 from parcels_tpu_torch._core import index_search
-from parcels_tpu_torch._core.grid import XGrid, grid_search
+from parcels_tpu_torch._core.basegrid import BaseGrid
+from parcels_tpu_torch._core.grid import grid_search
 from parcels_tpu_torch._core.particles_view import Particles
 from parcels_tpu_torch._core.statuscodes import StatusCode
 
@@ -22,14 +24,20 @@ __all__ = ["Field", "FieldView", "GridView", "VectorField", "VectorFieldView"]
 
 
 class Field:
-    """Host-side scalar field: name + dense (T, Z, Y, X) numpy data + grid + interpolator."""
+    """Host-side scalar field: name + dense numpy data + grid + interpolator.
 
-    def __init__(self, name: str, data: np.ndarray, grid: XGrid, interp_method=None):
+    Data layout is (T, Z, Y, X) on structured grids and (T, Z, N) on
+    unstructured grids (N = n_face or n_node).
+    """
+
+    def __init__(self, name: str, data: np.ndarray, grid: BaseGrid, interp_method=None):
         if not name.isidentifier():
             raise ValueError(f"Field name must be a valid identifier, got {name!r}")
         data = np.asarray(data)
-        if data.ndim != 4:
-            raise ValueError(f"Field data must be (T, Z, Y, X); got shape {data.shape}")
+        if data.ndim not in (3, 4):
+            raise ValueError(
+                f"Field data must be (T, Z, Y, X) or unstructured (T, Z, N); got shape {data.shape}"
+            )
         self.name = name
         self.data = data
         self.grid = grid
@@ -115,15 +123,18 @@ class GridView:
 
 
 class FieldView:
-    __slots__ = ("name", "data", "grid", "igrid", "interp_method", "has_time")
+    __slots__ = ("name", "data", "grid", "igrid", "interp_method", "has_time", "_tables")
 
-    def __init__(self, name, data, grid: GridView, igrid, interp_method, has_time):
+    def __init__(self, name, data, grid: GridView, igrid, interp_method, has_time, tables=None):
         self.name = name
         self.data = data
         self.grid = grid
         self.igrid = igrid
         self.interp_method = interp_method
         self.has_time = has_time
+        # derived tables of the data (ops/uxcol.py), shared by every view of
+        # one fieldset's device arrays
+        self._tables = {} if tables is None else tables
 
     def eval(self, t, z, y, x, particles: Particles | None = None):
         ppos, gpos = _get_positions(self, t, z, y, x, particles)
@@ -141,10 +152,10 @@ class FieldView:
 class VectorFieldView:
     __slots__ = (
         "name", "U", "V", "W", "grid", "igrid", "interp_method", "vector_type",
-        "_stage_cache", "_sc_owner", "_cell_table",
+        "_stage_cache", "_sc_owner", "_cell_table", "_tables",
     )
 
-    def __init__(self, name, U, V, W, interp_method, sc_owner=False):
+    def __init__(self, name, U, V, W, interp_method, sc_owner=False, tables=None):
         self.name = name
         self.U = U
         self.V = V
@@ -161,12 +172,16 @@ class VectorFieldView:
         self._sc_owner = bool(sc_owner)
         # fused per-cell [pic | geometry] row table (stagecache.cell_table)
         self._cell_table = None
+        # fused [U | V] z-row table (uxcol.ux_colT_uv_table), shared as FieldView._tables
+        self._tables = {} if tables is None else tables
 
     def eval(self, t, z, y, x, particles: Particles | None = None):
-        from parcels_tpu_torch.ops import stagecache
+        from parcels_tpu_torch.ops import stagecache, uxcache
 
         if stagecache.enabled(self):
             return stagecache.cgrid_cached_eval(self, t, z, y, x, particles)
+        if uxcache.enabled(self):
+            return uxcache.ux_cached_eval(self, t, z, y, x, particles)
         ppos, gpos = _get_positions(self.U, t, z, y, x, particles)
         u, v, w = self.interp_method.interp(ppos, gpos, self)
         if particles is not None:
@@ -225,6 +240,10 @@ def _get_positions(field: FieldView, t, z, y, x, particles: Particles | None):
 
 def _update_particles_ei(particles: Particles, gpos, field: FieldView):
     spec = field.grid.spec
+    if "FACE" in gpos:
+        # unstructured: ei caches the face index (z is re-bracketed per eval)
+        particles._set_ei(field.igrid, torch.clamp(gpos["FACE"]["index"], 0, spec.n_face - 1))
+        return
     if _ei_cache_pointless(spec, field):
         return
     ydim = max(spec.ydim, 1)
@@ -265,7 +284,9 @@ def _update_state_position(particles: Particles, gpos, t_oob):
         nonlocal esc
         esc = torch.maximum(esc, torch.where(cond, int(code), 0).to(torch.int32))
 
-    for dim in ("X", "Y"):
+    for dim in ("X", "Y", "FACE"):
+        if dim not in gpos:
+            continue
         idx = gpos[dim]["index"]
         mark(idx == index_search.RIGHT_OUT_OF_BOUNDS, StatusCode.ErrorOutOfBounds)
         mark(idx == index_search.GRID_SEARCH_ERROR, StatusCode.ErrorGridSearching)
@@ -282,6 +303,7 @@ def _mask_oob_values(gpos, value):
     if value is None:
         return None
     mask = torch.zeros(value.shape, dtype=torch.bool, device=value.device)
-    for dim in ("X", "Y", "Z"):
-        mask = mask | (gpos[dim]["index"] < 0)
+    for dim in ("X", "Y", "Z", "FACE"):
+        if dim in gpos:
+            mask = mask | (gpos[dim]["index"] < 0)
     return torch.where(mask, torch.zeros((), dtype=value.dtype, device=value.device), value)

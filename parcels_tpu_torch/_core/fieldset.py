@@ -1,17 +1,16 @@
 """FieldSet: host container of Fields + device tensors (torch).
 
-Port of the JAX package's ``_core/fieldset.py`` for structured datasets:
-SGRID-convention ingestion (rectilinear or curvilinear, A- or C-grid),
-vector-field autodiscovery with C-grid detection, constant fields and
-context constants readable inside kernels. At ingest every field is
-transposed on the host to a dense (T, Z, Y, X) block; ``device_arrays()``
-ships data, grid coordinates and search tables to the fieldset's device
-once and caches them.
+Port of the JAX package's ``_core/fieldset.py``: SGRID-convention ingestion
+(rectilinear or curvilinear, A- or C-grid) and UGRID-convention ingestion
+(triangular meshes), vector-field autodiscovery with C-grid detection,
+constant fields and context constants readable inside kernels. At ingest
+every field is transposed on the host to a dense (T, Z, Y, X) block, or
+(T, Z, N) on a mesh; ``device_arrays()`` ships data, grid coordinates and
+search tables to the fieldset's device once and caches them.
 
 The fieldset's device is ``cuda`` unless the caller names another; without
-CUDA the default raises instead of running on the CPU. Parts of the JAX
-package that belong to later slices of the port (UGRID, time windows)
-raise ``NotImplementedError``.
+CUDA the default raises instead of running on the CPU. Time windows belong
+to a later slice of the port and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -158,6 +157,8 @@ class FieldSet:
         object.__setattr__(self, "context", {})
         object.__setattr__(self, "_gridset", [])
         object.__setattr__(self, "_device_cache", None)
+        object.__setattr__(self, "_device_cache_key", None)
+        object.__setattr__(self, "_field_tensors", {})
         object.__setattr__(self, "device", resolve_device(device))
         for f in fields or []:
             self.add_field(f)
@@ -292,8 +293,105 @@ class FieldSet:
         return fs
 
     @classmethod
-    def from_ugrid_conventions(cls, *args, **kwargs):
-        raise NotImplementedError("UGRID fieldsets belong to the unstructured-mesh slice of the port.")
+    def from_ugrid_conventions(
+        cls,
+        ds: xr.Dataset,
+        mesh: Literal["flat", "spherical"] | None = None,
+        vector_fields: dict[str, tuple[str, ...]] | None = None,
+        fill_value: float = 0.0,
+        device=None,
+    ) -> "FieldSet":
+        """Build a FieldSet from a UGRID-convention triangular-mesh dataset.
+
+        Mirrors the JAX package: requires dims {time, zf, zc}, node
+        coordinates ``node_lon``/``node_lat`` and ``face_node_connectivity``
+        (n_face, 3); renames common U/V/W variable names; picks each
+        variable's interpolator from its (vertical, lateral) dim placement;
+        NaN -> ``fill_value``. ``device`` defaults to ``cuda``.
+        """
+        from parcels_tpu_torch._core.uxgrid import UxGrid
+        from parcels_tpu_torch.interpolators.uxinterp import (
+            Ux_Velocity,
+            UxConstantFaceConstantZC,
+            UxConstantFaceLinearZF,
+            UxLinearNodeConstantZC,
+            UxLinearNodeLinearZF,
+        )
+
+        ds_dims = set(str(d) for d in ds.dims)
+        for need in ("time", "zf", "zc"):
+            if need not in ds_dims:
+                raise ValueError(
+                    f"Dataset missing one of the required dimensions 'time', 'zf', or 'zc' "
+                    f"for a UGRID dataset. Found dimensions {sorted(ds_dims)}"
+                )
+        for need in ("node_lon", "node_lat", "face_node_connectivity"):
+            if need not in ds:
+                raise ValueError(f"UGRID dataset needs a {need!r} variable.")
+
+        # common U/V/W renames
+        for u_name, v_name in (("unod", "vnod"), ("u", "v")):
+            if u_name in ds.data_vars and "U" not in ds.data_vars:
+                ds = ds.rename({u_name: "U", v_name: "V"})
+        if "w" in ds.data_vars and "W" not in ds.data_vars:
+            ds = ds.rename({"w": "W"})
+
+        if mesh is None:
+            units = str(ds["node_lon"].attrs.get("units", ""))
+            if not units:
+                raise ValueError("node_lon has no 'units' attribute; pass mesh= explicitly.")
+            mesh = "spherical" if "degree" in units.lower() else "flat"
+
+        grid = UxGrid(
+            np.asarray(ds["node_lon"].values),
+            np.asarray(ds["node_lat"].values),
+            np.asarray(ds["face_node_connectivity"].values),
+            np.asarray(ds["zf"].values, dtype=np.float64),
+            mesh=mesh,
+            time=np.asarray(ds["time"].values) if "time" in ds else None,
+        )
+
+        interp_by_dims = {
+            ("zc", "n_face"): UxConstantFaceConstantZC,
+            ("zf", "n_face"): UxConstantFaceLinearZF,
+            ("zc", "n_node"): UxLinearNodeConstantZC,
+            ("zf", "n_node"): UxLinearNodeLinearZF,
+        }
+
+        fs = cls(device=device)
+        scalar_fields: dict[str, Field] = {}
+        skip = {"node_lon", "node_lat", "face_node_connectivity", "zf", "zc", "time"}
+        for varname in ds.data_vars:
+            if varname in skip or ds[varname].attrs.get("cf_role") == "grid_topology":
+                continue
+            da = ds[varname]
+            dims = tuple(str(d) for d in da.dims)
+            vdim = next((d for d in dims if d in ("zc", "zf")), None)
+            ldim = next((d for d in dims if d in ("n_face", "n_node")), None)
+            if vdim is None or ldim is None:
+                continue
+            order = [d for d in ("time", vdim, ldim) if d in dims]
+            arr = np.asarray(da.values).transpose([dims.index(d) for d in order])
+            if "time" not in dims:
+                arr = arr[None]
+            arr = _fillna(arr, fill_value)
+            f = Field(str(varname), arr, grid, interp_method=interp_by_dims[(vdim, ldim)]())
+            scalar_fields[str(varname)] = f
+            fs.add_field(f)
+
+        if vector_fields is None:
+            vector_fields = _default_vector_field_components(scalar_fields)
+        for vname, components in vector_fields.items():
+            if len(components) not in (2, 3):
+                raise ValueError(
+                    f"Vector field {vname!r} must have either 2 or 3 components; got {len(components)}."
+                )
+            for c in components:
+                if c not in scalar_fields:
+                    raise ValueError(f"Vector field {vname!r} component {c!r} not in dataset.")
+            fs.add_field(VectorField(vname, *[scalar_fields[c] for c in components],
+                                     interp_method=Ux_Velocity()))
+        return fs
 
     def set_time_window(self, nlevels: int):
         raise NotImplementedError(
@@ -306,44 +404,57 @@ class FieldSet:
         """Drop the cached device tensors, so that a field's swapped
         ``interp_method`` (and the tables it needs) is seen."""
         object.__setattr__(self, "_device_cache", None)
+        object.__setattr__(self, "_field_tensors", {})
 
     def device_arrays(self) -> dict:
-        """All field data + grid coordinates on the fieldset's device; cached."""
-        if self._device_cache is not None:
-            return self._device_cache
-        farrays = {
-            "fields": {},
-            "grids": [grid.device_arrays(self.device) for grid in self._gridset],
-        }
-        for name, f in self._fields.items():
-            if isinstance(f, Field):
-                farrays["fields"][name] = _device_copy(f.data, self.device)
+        """All field data + grid coordinates on the fieldset's device; cached.
+
+        The UGRID face table rides in the grid tensors only while the
+        ``uxcol`` tier is on, so the cache is keyed on that mode; the field
+        tensors cross to the device once whatever the mode.
+        """
+        from parcels_tpu_torch.ops import uxcol
         from parcels_tpu_torch.ops.stagecache import attach_derived_tables
 
+        key = uxcol._mode()
+        if self._device_cache is not None and self._device_cache_key == key:
+            return self._device_cache
+        fields = self._field_tensors
+        for name, f in self._fields.items():
+            if isinstance(f, Field) and name not in fields:
+                fields[name] = _device_copy(f.data, self.device)
+        farrays = {
+            "fields": dict(fields),
+            "grids": [grid.device_arrays(self.device) for grid in self._gridset],
+        }
         attach_derived_tables(self, farrays)
         object.__setattr__(self, "_device_cache", farrays)
+        object.__setattr__(self, "_device_cache_key", key)
         return farrays
 
     def build_views(self, farrays: dict) -> "FieldSetView":
         """Device field views over ``farrays`` (as ``device_arrays`` returns)."""
+        from parcels_tpu_torch.ops import uxcache
         from parcels_tpu_torch.ops.stagecache import soa_cache_owner
 
         grid_views = [g.make_view(farrays["grids"][i]) for i, g in enumerate(self._gridset)]
         celltables = farrays.get("celltables", {})
+        tables = farrays.setdefault("tables", {})
         sc_owner, _ = soa_cache_owner(self)
+        uxc_owner, _ = uxcache.soa_cache_owner(self)
         views: dict[str, object] = {}
         for name, f in self._fields.items():
             if isinstance(f, Field):
                 views[name] = FieldView(
                     name, farrays["fields"][name], grid_views[f.igrid], f.igrid,
-                    f.interp_method, f.data.shape[0] > 1,
+                    f.interp_method, f.data.shape[0] > 1, tables.setdefault(name, {}),
                 )
         for name, f in self._fields.items():
             if isinstance(f, VectorField):
                 views[name] = VectorFieldView(
                     name, views[f.U.name], views[f.V.name],
                     views[f.W.name] if f.W is not None else None, f.interp_method,
-                    sc_owner=name == sc_owner,
+                    sc_owner=name in (sc_owner, uxc_owner), tables=tables.setdefault(name, {}),
                 )
                 if f.igrid in celltables:
                     views[name]._cell_table = celltables[f.igrid]

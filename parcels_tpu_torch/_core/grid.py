@@ -20,6 +20,7 @@ import torch
 from parcels_tpu_torch import _sgrid as sgrid
 from parcels_tpu_torch import xrlite as xr
 from parcels_tpu_torch._core import index_search
+from parcels_tpu_torch._core.basegrid import BaseGrid
 from parcels_tpu_torch._core.mesh import BaseMesh, get_mesh
 from parcels_tpu_torch._core.timeutils import TimeInterval, datetimes_to_float_seconds
 
@@ -63,7 +64,7 @@ class GridSpec:
     has_lookup: bool = False
 
 
-class XGrid:
+class XGrid(BaseGrid):
     """Host-side structured grid built from an SGRID-annotated dataset."""
 
     def __init__(self, ds: xr.Dataset, mesh: Literal["flat", "spherical"] | BaseMesh = "flat"):
@@ -155,6 +156,14 @@ class XGrid:
     def zdim(self) -> int:
         return self.spec.zdim
 
+    def get_axis_dim(self, axis: str) -> int:
+        """Cell count along an axis."""
+        if axis not in self.axes:
+            raise ValueError(
+                f"Axis {axis!r} is not part of this grid. Available axes: {self.axes}"
+            )
+        return {"X": self.spec.xdim, "Y": self.spec.ydim, "Z": self.spec.zdim}[axis]
+
     def device_arrays(self, device, dtype=np.float32) -> dict:
         """Grid coordinate arrays and search tables on ``device`` (part of
         the field arrays)."""
@@ -211,10 +220,18 @@ class XGrid:
 
         return GridView(self.spec, garrs, self.lookup_meta())
 
+    def _search_device(self, garrs: dict, z, y, x, ei):
+        return grid_search(self.spec, garrs, z, y, x, ei=ei, lookup_meta=self.lookup_meta())
+
     def ravel_index(self, zi, yi, xi):
         ydim = max(self.spec.ydim, 1)
         xdim = max(self.spec.xdim, 1)
         return (zi * ydim + yi) * xdim + xi
+
+    def unravel_index(self, ei):
+        ydim = max(self.spec.ydim, 1)
+        xdim = max(self.spec.xdim, 1)
+        return ei // (xdim * ydim), (ei // xdim) % ydim, ei % xdim
 
     def __eq__(self, other):
         return self is other

@@ -34,13 +34,8 @@ from parcels_tpu_torch._core.warnings_ import KernelWarning, ParticleSetWarning
 
 __all__ = ["ParticleSet", "state_from_numpy"]
 
-#: engine modes of the JAX package that belong to later slices of the port.
-#: ``colgather`` is accepted in every mode: its one-hot reduce returns exactly
-#: the gathered value, so the port's plain gathers give its results
-_LATER_SLICE_OPTIONS = {
-    "uxcol": "the unstructured-mesh slice",
-    "uxcache": "the unstructured-mesh slice",
-}
+#: SoA columns of the engine's persistent caches, which are no particle variables
+_CACHE_PREFIXES = ("_sc_", "_uxc_")
 
 
 def _to_device(arr, device) -> torch.Tensor:
@@ -52,10 +47,14 @@ def state_from_numpy(field_arrays: dict, pdata: dict, device):
     """The port's field tensors and SoA from the JAX package's numpy state.
 
     ``field_arrays`` is ``{"fields": {name: array}, "grids": [{coord:
-    array}]}`` as ``FieldSet.device_arrays()`` holds it; ``pdata`` is a
-    ``ParticleSet._data`` dict. Every array keeps its dtype (f32 positions
-    and ``_tc`` carry, int32 ``state``/``ei``, bool ``_active``); the
-    ``_rng`` key stays on the host, as the port keeps it.
+    array}]}`` as ``FieldSet.device_arrays()`` holds it, for structured
+    grids and for a ``UxGrid`` alike (its (T, Z, N) fields, mesh tables and
+    fused face table, whose ids keep their bit patterns); ``pdata`` is a
+    ``ParticleSet._data`` dict, with the persistent cache columns
+    (``_sc_*``, ``_uxc_*``) where it has them. Every array keeps its dtype
+    (f32 positions and ``_tc`` carry, int32 ``state``/``ei``/cache keys,
+    bool ``_active``); the ``_rng`` key stays on the host, as the port
+    keeps it.
     """
     device = torch.device(device)
     farrays = {
@@ -154,9 +153,10 @@ class ParticleSet:
 
     def __getattr__(self, name):
         """Active lanes of a particle variable, as numpy. The engine's
-        persistent-cache columns (``_sc_*``) are not particle variables."""
+        persistent-cache columns (``_sc_*``, ``_uxc_*``) are not particle
+        variables."""
         data = self.__dict__.get("_data")
-        if data is not None and name in data and not name.startswith("_sc_"):
+        if data is not None and name in data and not name.startswith(_CACHE_PREFIXES):
             arr = _host(data[name])
             active = _host(data["_active"])
             if arr.ndim >= 1 and arr.shape[0] == active.shape[0]:
@@ -186,6 +186,9 @@ class ParticleSet:
             gpos = grid.make_view(farrays["grids"][i]).search(
                 self._data["z"], self._data["y"], self._data["x"]
             )
+            if "FACE" in gpos:
+                ei[:, i] = torch.clamp(gpos["FACE"]["index"], 0, grid.n_face - 1).to(ei.dtype)
+                continue
             zi = torch.clamp(gpos["Z"]["index"], 0, max(grid.zdim - 1, 0))
             yi = torch.clamp(gpos["Y"]["index"], 0, max(grid.ydim - 1, 0))
             xi = torch.clamp(gpos["X"]["index"], 0, max(grid.xdim - 1, 0))
@@ -206,11 +209,6 @@ class ParticleSet:
         opts = options if options is not None else EngineOptions()
         if not isinstance(opts, EngineOptions):
             raise TypeError(f"options must be an EngineOptions. Got {type(opts)}")
-        for name, slice_ in _LATER_SLICE_OPTIONS.items():
-            if getattr(opts, name) == "force":
-                raise NotImplementedError(
-                    f"EngineOptions({name}='force') belongs to {slice_} of the port."
-                )
         with opts.applied():
             return self._execute_impl(kernels, dt, endtime, runtime, output_file, verbose_progress)
 
@@ -251,13 +249,17 @@ class ParticleSet:
         z_occ = self._set_sampler_occupancy_hint()
         # reference kernel.py:190: every execute() call requeues all active lanes
         d["state"] = torch.where(d["_active"], int(StatusCode.Evaluate), d["state"]).to(torch.int32)
-        # persistent C-grid cell cache (ops/stagecache.py): inject the SoA
-        # columns before padding, so padded lanes get invalid keys too
-        from parcels_tpu_torch.ops import stagecache
+        # persistent C-grid cell cache (ops/stagecache.py) and its UGRID twin
+        # (ops/uxcache.py): inject the SoA columns before padding, so padded
+        # lanes get invalid keys too
+        from parcels_tpu_torch.ops import stagecache, uxcache
 
         sc_ok, sc_w = stagecache.soa_cache_applicable(self.fieldset)
         if sc_ok and stagecache.SC_KEY not in d:
             d.update(stagecache.make_soa_cache(d["state"].shape[0], sc_w, self.device))
+        uxc_ok, uxc_meta = uxcache.soa_cache_applicable(self.fieldset)
+        if uxc_ok and uxcache.UXC_KEY not in d:
+            d.update(uxcache.make_soa_cache(d["state"].shape[0], uxc_meta, self.device))
 
         self._pad_capacity(DEFAULT_BLOCK_SIZE)
         if _sort_mode_enabled(self.fieldset) and not bool(self._data["ei"].any()):
@@ -435,7 +437,7 @@ class ParticleSet:
             # -1 sentinels: padded lanes must never look like live ids or
             # valid persistent-cache cells (cell 0 is real)
             fill = torch.full((pad,) + tuple(v.shape[1:]),
-                              -1 if k in ("particle_id", "_sc_key") else 0,
+                              -1 if k in ("particle_id", "_sc_key", "_uxc_key") else 0,
                               dtype=v.dtype, device=v.device)
             out[k] = torch.cat([v, fill])
         out["_active"][n:] = False

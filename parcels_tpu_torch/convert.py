@@ -1,10 +1,11 @@
-"""Model-output -> SGRID convention normalizers (NEMO, CROCO).
+"""Model-output -> SGRID / UGRID convention normalizers (NEMO, CROCO, FESOM2, ICON).
 
-Copy of the NEMO and CROCO parts of the JAX package's ``convert.py``:
-``nemo_to_sgrid``, ``croco_to_sgrid`` and the helpers they call, unchanged
-apart from the imports. They take raw model output (xrlite or real xarray
-datasets, duck-typed) and return an SGRID-annotated dataset for
-``FieldSet.from_sgrid_conventions``. The converters for other models belong
+Copy of the NEMO, CROCO, FESOM2 and ICON parts of the JAX package's
+``convert.py``: ``nemo_to_sgrid``, ``croco_to_sgrid``, ``fesom_to_ugrid``,
+``icon_to_ugrid`` and the helpers they call, unchanged apart from the
+imports. They take raw model output (xrlite or real xarray datasets,
+duck-typed) and return a dataset for ``FieldSet.from_sgrid_conventions`` or
+``FieldSet.from_ugrid_conventions``. The converters for other models belong
 to a later slice of the port.
 """
 
@@ -16,7 +17,7 @@ from parcels_tpu_torch import _sgrid as sgrid
 from parcels_tpu_torch import xrlite as xr
 from parcels_tpu_torch._logging import logger
 
-__all__ = ["croco_to_sgrid", "nemo_to_sgrid"]
+__all__ = ["croco_to_sgrid", "fesom_to_ugrid", "icon_to_ugrid", "nemo_to_sgrid"]
 
 _NEMO_VARNAMES_MAPPING = {
     "time_counter": "time",
@@ -268,3 +269,72 @@ def croco_to_sgrid(*, fields: dict, coords) -> xr.Dataset:
             vertical_dimensions=(sgrid.FaceNodePadding("s_rho", "depth", sgrid.Padding.HIGH),),
         ),
     )
+
+
+# vertical dim names per unstructured model
+_FESOM2_VERTICAL_DIMS = {"interface": "nz", "center": "nz1"}
+_ICON_VERTICAL_DIMS = {"interface": "depth_2", "center": "depth"}
+
+
+# ---------------------------------------------------------------------------
+# Unstructured models (UGRID)
+# ---------------------------------------------------------------------------
+
+
+def _detect_vertical_dims(ds, known: dict | None) -> tuple[str, str]:
+    """(interface_dim, center_dim) detection (reference convert.py:656-744)."""
+    dims = set(str(d) for d in ds.dims)
+    if known:
+        i, c = known.get("interface"), known.get("center")
+        if i in dims and c in dims:
+            return i, c
+    z_dims = []
+    for d in dims:
+        if d in ds:
+            a = ds[d].attrs
+            if a.get("axis") == "Z" or a.get("positive") in ("up", "down") or "depth" in str(
+                a.get("standard_name", "")
+            ).lower():
+                z_dims.append(d)
+    if len(z_dims) == 2:
+        z_dims.sort(key=lambda d: ds.sizes[d], reverse=True)
+        if ds.sizes[z_dims[0]] == ds.sizes[z_dims[1]] + 1:
+            return z_dims[0], z_dims[1]
+    skip = {"time", "n_face", "n_node", "n_edge", "n_max_face_nodes"}
+    cands = [d for d in dims if d not in skip]
+    for d1 in cands:
+        for d2 in cands:
+            if d1 != d2 and ds.sizes[d1] == ds.sizes[d2] + 1:
+                return d1, d2
+    raise ValueError(
+        f"Could not detect vertical coordinate dimensions in dataset with dims {sorted(dims)}. "
+        "Rename them manually to 'zf' (interfaces) and 'zc' (centers)."
+    )
+
+
+def _rename_vertical_dims(ds, interface_dim: str, center_dim: str):
+    rename = {}
+    if interface_dim != "zf":
+        rename[interface_dim] = "zf"
+    if center_dim != "zc":
+        rename[center_dim] = "zc"
+    if rename:
+        ds = ds.rename(rename)
+    return ds
+
+
+def fesom_to_ugrid(ds):
+    """FESOM2 dataset -> Parcels UGRID naming (reference convert.py:775-811)."""
+    ds = _as_xrlite(ds)
+    for try_dim, target in (("nod2", "n_face"), ("elem", "n_node")):
+        if try_dim in ds.dims:
+            ds = ds.rename({try_dim: target})
+    i, c = _detect_vertical_dims(ds, _FESOM2_VERTICAL_DIMS)
+    return _rename_vertical_dims(ds, i, c)
+
+
+def icon_to_ugrid(ds):
+    """ICON dataset -> Parcels UGRID naming (reference convert.py:813-847)."""
+    ds = _as_xrlite(ds)
+    i, c = _detect_vertical_dims(ds, _ICON_VERTICAL_DIMS)
+    return _rename_vertical_dims(ds, i, c)

@@ -10,10 +10,13 @@ from parcels_tpu_torch.datasets.structured import (
     simple_UV_dataset,
     stommel_gyre_dataset,
 )
+from parcels_tpu_torch.datasets.unstructured import delaunay_flow_dataset, fesom2_style_dataset
 
 __all__ = [
     "curvilinear_rotated_dataset",
     "decaying_moving_eddy_dataset",
+    "delaunay_flow_dataset",
+    "fesom2_style_dataset",
     "moi_like_fieldset",
     "moi_like_inputs",
     "moving_eddy_dataset",

@@ -1,6 +1,13 @@
-"""Interpolator library of the port (structured A-grid and C-grid schemes)."""
+"""Interpolator library of the port (structured A-grid and C-grid schemes, UGRID meshes)."""
 
 from parcels_tpu_torch.interpolators._base import ScalarInterpolator, VectorInterpolator
+from parcels_tpu_torch.interpolators.uxinterp import (
+    Ux_Velocity,
+    UxConstantFaceConstantZC,
+    UxConstantFaceLinearZF,
+    UxLinearNodeConstantZC,
+    UxLinearNodeLinearZF,
+)
 from parcels_tpu_torch.interpolators.xinterp import (
     CGrid_Tracer,
     CGrid_Velocity,
@@ -17,6 +24,11 @@ __all__ = [
     "CGrid_Tracer",
     "CGrid_Velocity",
     "ScalarInterpolator",
+    "UxConstantFaceConstantZC",
+    "UxConstantFaceLinearZF",
+    "UxLinearNodeConstantZC",
+    "UxLinearNodeLinearZF",
+    "Ux_Velocity",
     "VectorInterpolator",
     "XConstantField",
     "XFreeslip",

@@ -127,10 +127,24 @@ def attach_derived_tables(fieldset, farrays) -> None:
 
 
 def prebuild_tables(fsview) -> None:
-    """Materialize the fused cell tables before the step loop (engine: right
-    after build_views)."""
+    """Materialize the fused cell tables, and the UGRID corner-column tables
+    of the tier in use, before the step loop (engine: right after
+    build_views)."""
+    from parcels_tpu_torch.ops import uxcache, uxcol
+
     for v in fsview.fields.values():
-        if hasattr(v, "_stage_cache") and enabled(v):
+        is_vector = hasattr(v, "_stage_cache")
+        for comp in (v.U, v.V, v.W) if is_vector else (v,):
+            if (comp is None or comp.data.dim() != 3 or "face_table" not in comp.grid.garrs
+                    or not uxcol.col_usable(comp.data.shape)):
+                continue
+            if is_vector and uxcache.enabled(v):
+                uxcol.ux_colT_uv_table(v)
+                if v.W is not None:
+                    uxcol.ux_colT_table(v.W)
+            else:
+                uxcol.ux_col_table(comp)
+        if is_vector and enabled(v):
             cell_table(v)
 
 
@@ -190,14 +204,15 @@ def make_soa_cache(n: int, has_w: bool, device) -> dict:
 
 
 def invalidate_soa_cache(dev: dict) -> dict:
-    """Mark every lane's persistent cache invalid."""
-    if SC_KEY not in dev:
-        return dev
-    dev = dict(dev)
-    key = dev[SC_KEY].clone()
-    key[:, 0] = -1
-    dev[SC_KEY] = key
-    return dev
+    """Mark every lane's persistent cache invalid, the UGRID cache's too."""
+    from parcels_tpu_torch.ops import uxcache
+
+    if SC_KEY in dev:
+        dev = dict(dev)
+        key = dev[SC_KEY].clone()
+        key[:, 0] = -1
+        dev[SC_KEY] = key
+    return uxcache.invalidate_soa_cache(dev)
 
 
 def _rows(vf, cell):
@@ -231,11 +246,19 @@ def flush(fsview, pd) -> None:
     """Write the owner view's final kernel-call cache back into the SoA
     (engine: after every kernel call). Entries of lanes that were not
     evaluated were loaded unchanged from the SoA."""
-    if SC_KEY not in pd:
+    from parcels_tpu_torch.ops import uxcache
+
+    if SC_KEY not in pd and uxcache.UXC_KEY not in pd:
         return
     for v in fsview.fields.values():
         c = getattr(v, "_stage_cache", None)
         if c is None or not v._sc_owner:
+            continue
+        if "face" in c:  # the UGRID per-face cache (ops/uxcache.py)
+            if uxcache.UXC_KEY in pd:
+                uxcache.flush_one(c, pd)
+            continue
+        if SC_KEY not in pd:
             continue
         pd[SC_KEY] = torch.stack([c["cell"], c["ti"], c["zi"], c["wzi"]], dim=1).to(torch.int32)
         pd["_sc_u4"] = c["u4"]

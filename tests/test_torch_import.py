@@ -18,6 +18,9 @@ def test_import_leaves_jax_out():
         "import parcels_tpu_torch.ops.binned_sample, parcels_tpu_torch.ops._build; "
         "import parcels_tpu_torch.ops.stagecache, parcels_tpu_torch.ops.fused_rk4; "
         "import parcels_tpu_torch.convert, parcels_tpu_torch.datasets.moi; "
+        "import parcels_tpu_torch.ops.uxcol, parcels_tpu_torch.ops.uxcache; "
+        "import parcels_tpu_torch._core.uxgrid, parcels_tpu_torch.native; "
+        "import parcels_tpu_torch.interpolators.uxinterp, parcels_tpu_torch.datasets.unstructured; "
         "bad = [m for m in ('jax', 'parcels_tpu') if m in sys.modules]; "
         "assert not bad, bad"
     )
@@ -25,7 +28,7 @@ def test_import_leaves_jax_out():
     subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT, env=env, timeout=120)
 
 
-@pytest.mark.parametrize("suffix", [".py", ".cu", ".cuh"])
+@pytest.mark.parametrize("suffix", [".py", ".cu", ".cuh", ".cpp"])
 def test_no_source_names_jax_or_the_reference_package(suffix):
     files = sorted(PKG.rglob(f"*{suffix}"))
     assert files

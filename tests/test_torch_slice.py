@@ -236,9 +236,6 @@ def _later_slice_cases():
         _, tfs = _fieldsets((4, 1, 8, 8))
         tfs.set_time_window(2)
 
-    def ugrid():
-        tp.FieldSet.from_ugrid_conventions(None)
-
     def particle_mesh():
         from parcels_tpu_torch.parallel import ParticleMesh
 
@@ -250,19 +247,10 @@ def _later_slice_cases():
         _, tfs = _fieldsets((2, 1, 8, 8))
         YBandDomain(tfs, halo=2)
 
-    def ux_option(name):
-        def run():
-            _, tfs = _fieldsets((2, 1, 8, 8))
-            _run(tfs, "torch", tp.AdvectionEE, dict(x=[3000.0], y=[3000.0], t=[0.0]),
-                 options=tp.EngineOptions(**{name: "force"}))
-        return run
-
-    return {"window": window, "ugrid": ugrid, "particle_mesh": particle_mesh, "domain": domain,
-            "uxcol": ux_option("uxcol"), "uxcache": ux_option("uxcache")}
+    return {"window": window, "particle_mesh": particle_mesh, "domain": domain}
 
 
-@pytest.mark.parametrize("case", ["window", "ugrid", "particle_mesh", "domain", "uxcol",
-                                  "uxcache"])
+@pytest.mark.parametrize("case", ["window", "particle_mesh", "domain"])
 def test_later_slice_features_raise(case):
     with pytest.raises(NotImplementedError):
         _later_slice_cases()[case]()
