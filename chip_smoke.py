@@ -83,7 +83,34 @@ counter is set to 0 just before a path runs and read just after):
     s for 6 steps, the card's defaults against the CPU's ``uxcol="force",
     uxcache="force"``: identical states, positions within 1e-5 relative on
     all but at most 0.1 % of lanes (an edge-riding lane may pick the
-    neighbouring face).
+    neighbouring face);
+17. (j) out-of-core forcing streamed against resident. The script writes
+    two zarr stores with ``io.write_zarr_dataset`` (uncompressed, one level
+    a chunk) under ``build/stream`` and deletes them at the end: (j2) path
+    (b)'s model over 13 hourly levels, (13, 50, 500, 500) f32 U/V/W; (j1)
+    path (a)'s field. Each is opened lazily with ``set_time_window(2)`` and
+    run through ``ParticleSet.execute``: (j2) 2M particles,
+    ``[AdvectionRK4_3D, delete_oob]`` at dt 120 s for 12 h (K2 must
+    launch); (j1) 1M particles, AdvectionRK4 at dt 300 s for 23 h (K1 must
+    launch). Every window, at its first use, equals the in-memory
+    dataset's levels bit for bit on the card; (j1) also equals, bit for
+    bit, the same windows taken from memory. Then the same seeds on the
+    resident in-memory fieldset: states and activity equal on every lane,
+    the position spread printed (the resident axis rounds the time
+    position coarser, in both packages: ``stream_pair``); ``window_stats``
+    equal to the count reckoned from the windows' offsets. Printed for both runs:
+    particle-steps/s, peak device memory, host seconds inside
+    ``windowed_arrays`` (the method wrapped on the instance); the pinned
+    copy rate of one window; (j2) for 2 h without and with the prefetch,
+    in turns;
+18. restart on the card: (j2) streamed for 6 h with hourly Parquet output,
+    ``checkpoint``, ``from_checkpoint`` on a freshly opened streamed
+    fieldset, 6 more hours: equal to phase 17's 12 h run (states equal,
+    positions within rtol 1e-6; the largest difference and whether it is
+    bit for bit are printed); ``from_particlefile`` on the output returns
+    the 6 h snapshot's ids and positions. Then (j2) streamed at 64K
+    particles for 2 h on the card and on the CPU: states equal, positions
+    within rtol 1e-5, as phase 5.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Field data and
@@ -93,8 +120,10 @@ result when CUDA is absent or the port cannot be imported.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -171,8 +200,9 @@ def bound(nbytes, nops):
     return 1e3 * max(b, o), ("bytes" if b >= o else "operations")
 
 
-def flat_dataset(shape, extent, seed, w_scale=None):
-    """A flat rectilinear U/V(/W) dataset with random velocities."""
+def flat_dataset(shape, extent, seed, w_scale=None, f32_draws=False):
+    """A flat rectilinear U/V(/W) dataset with random velocities (drawn in
+    f32 with ``f32_draws``, which halves the host time at gigabyte sizes)."""
     from parcels_tpu_torch import xrlite as xr
     from parcels_tpu_torch.datasets.structured import _coords_2d, _wrap_sgrid
 
@@ -183,9 +213,21 @@ def flat_dataset(shape, extent, seed, w_scale=None):
     taxis = np.array([np.datetime64("2000-01-01") + np.timedelta64(3600 * i, "s") for i in range(T)])
     rng = np.random.default_rng(seed)
     dims = ["time", "depth", "YG", "XG"]
-    data = {c: (dims, rng.uniform(-0.3, 0.3, shape).astype(np.float32)) for c in ("U", "V")}
-    if w_scale is not None:
-        data["W"] = (dims, (rng.uniform(-1, 1, shape) * w_scale).astype(np.float32))
+
+    if f32_draws:
+        def uniform(scale):
+            a = rng.random(shape, dtype=np.float32)
+            a *= np.float32(2 * scale)
+            a -= np.float32(scale)
+            return a
+
+        data = {c: (dims, uniform(0.3)) for c in ("U", "V")}
+        if w_scale is not None:
+            data["W"] = (dims, uniform(w_scale))
+    else:
+        data = {c: (dims, rng.uniform(-0.3, 0.3, shape).astype(np.float32)) for c in ("U", "V")}
+        if w_scale is not None:
+            data["W"] = (dims, (rng.uniform(-1, 1, shape) * w_scale).astype(np.float32))
     ds = xr.Dataset(data, coords=_coords_2d(lon, lat, time=taxis, depth=depth, mesh="flat"))
     return _wrap_sgrid(ds, X, Y)
 
@@ -1370,6 +1412,337 @@ def ux_card_cpu_phase(tp):
         f"max relative position difference {rel.max():.3g}, share beyond 1e-5 {over:.5f}")
 
 
+#: (j2): path (b)'s regional 3-D model over 13 hourly levels, 2M particles,
+#: RK4_3D with out-of-bounds deletion at dt 120 s for 12 h; (j1): path (a)'s
+#: surface field (24 hourly levels), 1M particles, RK4 at dt 300 s for 23 h
+J2_SHAPE, J2_LANES, J2_DT, J2_HOURS = (13, 50, 500, 500), 2_000_000, 120, 12
+J1_LANES, J1_DT, J1_HOURS = 1 << 20, 300, 23
+#: levels a window holds
+WINDOW = 2
+
+
+def stream_dir() -> str:
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "stream")
+
+
+def streamed_fieldset(tp, path):
+    """A fieldset over the zarr store at ``path``, streamed two levels at a time."""
+    from parcels_tpu_torch.io import open_zarr_dataset
+
+    fs = tp.FieldSet.from_sgrid_conventions(open_zarr_dataset(path), mesh="flat")
+    fs.set_time_window(WINDOW)
+    if not getattr(fs.fields["U"].data, "_parcels_lazy", False):
+        raise AssertionError("the store's U was not opened lazily")
+    return fs
+
+
+def watch_windows(fs, ds=None):
+    """Wrap ``fs.windowed_arrays`` on the instance: host seconds spent inside
+    it and the offsets of the windows it served. With ``ds`` (the in-memory
+    dataset the store was written from) each window, at its first use, is
+    held bit for bit against ``ds``'s levels on the current stream, after
+    the wait for its copy (outside the timed span)."""
+    rec = {"wait_s": 0.0, "keys": set()}
+    inner = fs.windowed_arrays
+
+    def wrapped(t_lo, t_hi):
+        t0 = time.perf_counter()
+        out = inner(t_lo, t_hi)
+        rec["wait_s"] += time.perf_counter() - t0
+        key = fs._window_offsets(t_lo, t_hi)
+        if ds is not None and key not in rec["keys"]:
+            check_window(fs, ds, key, out)
+        rec["keys"].add(key)
+        return out
+
+    fs.windowed_arrays = wrapped
+    return rec
+
+
+def check_window(fs, ds, key, farrays):
+    """The window's field and time tensors equal ``ds``'s levels."""
+    import torch
+
+    for name, f in fs.fields.items():
+        got = farrays["fields"].get(name)  # scalar fields only
+        if got is None or f.data.shape[0] <= 1:
+            continue
+        i0 = key[f.igrid]
+        want = np.asarray(ds[name].values)[i0:i0 + got.shape[0]].reshape(got.shape)
+        if not torch.equal(got, torch.from_numpy(np.ascontiguousarray(want)).to(got.device)):
+            raise AssertionError(f"window {key}: {name} differs from the dataset's levels")
+        t_want = fs.gridset[f.igrid].time[i0:i0 + got.shape[0]].astype(np.float32)
+        if not np.array_equal(farrays["grids"][f.igrid]["time"].cpu().numpy(), t_want):
+            raise AssertionError(f"window {key}: the time values differ")
+
+
+def reckoned_stats(tp, fs, keys) -> dict:
+    """Loads and bytes the windows at ``keys`` read, from their offsets."""
+    loads = nbytes = 0
+    for key in keys:
+        for f in fs.fields.values():
+            if isinstance(f, tp.Field) and f.data.shape[0] > 1:
+                n = min(WINDOW, f.data.shape[0] - key[f.igrid])
+                loads += 1
+                nbytes += n * int(np.prod(f.data.shape[1:])) * f.data.dtype.itemsize
+    return {"loads": loads, "bytes_read": nbytes}
+
+
+def stream_seeds(fs, n, seed, zrange=None):
+    """``run_path``'s release: uniform over the middle 80 % of the grid."""
+    rng = np.random.default_rng(seed)
+    g = fs.gridset[0]
+    span = lambda a: (a[0] + 0.1 * (a[-1] - a[0]), a[-1] - 0.1 * (a[-1] - a[0]))  # noqa: E731
+    kw = dict(x=rng.uniform(*span(g.lon), n), y=rng.uniform(*span(g.lat), n), t=np.zeros(n))
+    if zrange is not None:
+        kw["z"] = rng.uniform(*zrange, n)
+    return kw
+
+
+def timed_run(torch, tp, fs, seeds, kernels, dt_s, hours, output_file=None):
+    """One execute from ``seeds``; (pset, launches, stats, peak): ``peak`` is
+    ``max_memory_allocated`` (reset just before) less what was allocated
+    before the run, i.e. what the run itself held at its peak."""
+    gc.collect()  # fieldsets of earlier runs (a wrapped method is a cycle)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    pset = tp.ParticleSet(fs, **seeds)
+    zero_counts()
+    pset.execute(kernels, dt=np.timedelta64(dt_s, "s"), runtime=np.timedelta64(hours * 3600, "s"),
+                 output_file=output_file)
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    if not (np.isfinite(pset.x).all() and np.isfinite(pset.y).all() and np.isfinite(pset.z).all()):
+        raise AssertionError("non-finite positions after a streamed run")
+    if int((pset.state >= tp.StatusCode.Error).sum()):
+        raise AssertionError("particles ended a streamed run in an error state")
+    return pset, launches, pset.last_run_stats, peak
+
+
+def same_run(name, a, b, rtol=1e-6, atol=1e-3):
+    """States and activity equal on every lane, positions within tolerance
+    (the JAX windowing test's); returns the largest position difference."""
+    np.testing.assert_array_equal(a._data["_active"].cpu().numpy(),
+                                  b._data["_active"].cpu().numpy(), err_msg=f"{name}: activity")
+    return assert_same(name, a, b, rtol=rtol, atol=atol)
+
+
+def h2d_ms(torch, nbytes, reps=5) -> float:
+    """Device ms of one pinned host-to-device copy of ``nbytes`` on a side
+    stream (the copy a window rollover makes)."""
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    stream = torch.cuda.Stream()
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(reps + 1):
+        with torch.cuda.stream(stream):
+            t0.record(stream)
+            host.to("cuda", non_blocking=True)
+            t1.record(stream)
+        t1.synchronize()
+        times.append(t0.elapsed_time(t1))
+    return sum(times[1:]) / reps  # the first copy is a warm-up
+
+
+def spread(a, b, rtol=1e-6, atol=1e-3):
+    """(largest position difference, share of lanes beyond rtol/atol)."""
+    d = np.max([np.abs(getattr(a, v) - getattr(b, v)) for v in ("x", "y", "z")], axis=0)
+    tol = np.max([atol + rtol * np.abs(getattr(b, v)) for v in ("x", "y", "z")], axis=0)
+    return float(d.max()), float((d > tol).mean())
+
+
+def stream_pair(torch, tp, name, ds, path, seeds, kernels, dt_s, hours, kernel):
+    """Phase 17 for one path: streamed from the store (every window held bit
+    for bit against the in-memory dataset's levels on the card), then the
+    in-memory dataset resident on the card, with equal states and activity
+    on every lane and its position spread printed. A resident axis of T
+    levels brackets t with the O(1) uniform formula and K1/K2 fold ``index
+    + tau`` into one f32, so tau keeps fewer bits than in a 2-level window,
+    in both packages alike (``scripts/window_time_spread.py``); a random
+    field grows that over a run. ``kernel`` must launch on the streamed run."""
+    fs = streamed_fieldset(tp, path)
+    rec = watch_windows(fs, ds)
+    s_set, s_l, s_st, s_peak = timed_run(torch, tp, fs, seeds, kernels, dt_s, hours)
+    want = reckoned_stats(tp, fs, rec["keys"])
+    if fs.window_stats != want:
+        raise AssertionError(f"{name}: window_stats {fs.window_stats}, reckoned {want}")
+    if s_l[kernel] == 0:
+        raise AssertionError(f"{name}: {kernel} was not launched on the streamed run")
+    nvar = sum(1 for f in fs.fields.values() if isinstance(f, tp.Field) and f.data.shape[0] > 1)
+    window_bytes = want["bytes_read"] // max(want["loads"], 1) * nvar
+    del fs
+    torch.cuda.empty_cache()
+
+    fs = tp.FieldSet.from_sgrid_conventions(ds, mesh="flat")
+    r_set, r_l, r_st, r_peak = timed_run(torch, tp, fs, seeds, kernels, dt_s, hours)
+    np.testing.assert_array_equal(s_set.state, r_set.state, err_msg=f"{name}: states")
+    np.testing.assert_array_equal(s_set._data["_active"].cpu().numpy(),
+                                  r_set._data["_active"].cpu().numpy(), err_msg=f"{name}: activity")
+    r_max, r_over = spread(s_set, r_set)
+    del fs, r_set
+    torch.cuda.empty_cache()
+    steps = hours * 3600 // dt_s
+    log(f"[stream {name}] {len(seeds['x'])} particles, {steps} steps of {dt_s} s, window "
+        f"{WINDOW} levels (store just written: reads from the page cache, a pipeline reading, "
+        f"not a disk's): streamed particle_steps_per_s {s_st['particle_steps_per_s']} (wall_s "
+        f"{s_st['wall_s']}, ms per step {1e3 * s_st['wall_s'] / steps:.2f}), resident "
+        f"{r_st['particle_steps_per_s']} (wall_s {r_st['wall_s']}, ms per step "
+        f"{1e3 * r_st['wall_s'] / steps:.2f}), streamed/resident "
+        f"{s_st['particle_steps_per_s'] / r_st['particle_steps_per_s']:.4f}; peak device memory "
+        f"of the run (max_memory_allocated above its start) streamed {s_peak} B, resident "
+        f"{r_peak} B (saved {r_peak - s_peak} B); host s in windowed_arrays "
+        f"{rec['wait_s']:.4f} over {len(rec['keys'])} windows; window_stats loads "
+        f"{want['loads']} bytes_read {want['bytes_read']} (= reckoned); launches streamed "
+        f"{s_l}, resident {r_l}; every window equal to the dataset's levels on the card; "
+        f"against the resident run: states and activity equal, max |position difference| "
+        f"{r_max:.4g} m, share of lanes beyond rtol 1e-6 / atol 1e-3 {r_over:.6f}")
+    return dict(streamed=s_set, launches=s_l, stats=s_st, peak=s_peak, resident_stats=r_st,
+                resident_peak=r_peak, wait_s=rec["wait_s"], windows=len(rec["keys"]),
+                window_bytes=window_bytes)
+
+
+def memory_windows(torch, tp, name, ds, seeds, kernels, dt_s, hours, streamed):
+    """The streamed run equals, bit for bit, the same windows taken from the
+    in-memory dataset (the store, the pinned staging and the copy stream
+    change nothing end to end)."""
+    fs = tp.FieldSet.from_sgrid_conventions(ds, mesh="flat")
+    fs.set_time_window(WINDOW)
+    m_set, _, st, _ = timed_run(torch, tp, fs, seeds, kernels, dt_s, hours)
+    for v in ("x", "y", "z", "state"):
+        np.testing.assert_array_equal(getattr(streamed, v), getattr(m_set, v),
+                                      err_msg=f"{name}: streamed against in-memory windows: {v}")
+    log(f"[stream {name}] the same windows from memory (particle_steps_per_s "
+        f"{st['particle_steps_per_s']}): equal to the streamed run bit for bit")
+
+
+def prefetch_ab(torch, tp, path, seeds, kernels, hours=2):
+    """(j2) streamed for ``hours`` without and with the prefetch, in turns
+    (without, with, with, without): without it each rollover reads its
+    window on the main thread."""
+    steps = hours * 3600 // J2_DT
+    readings = []
+    for prefetch in (False, True, True, False):
+        fs = streamed_fieldset(tp, path)
+        if not prefetch:
+            fs.prefetch_window = lambda t_anchor: None
+        rec = watch_windows(fs)
+        _, _, st, _ = timed_run(torch, tp, fs, seeds, kernels, J2_DT, hours)
+        readings.append(f"{'with' if prefetch else 'without'}: {1e3 * st['wall_s'] / steps:.2f} ms "
+                        f"per step, {rec['wait_s']:.4f} s in windowed_arrays")
+        del fs
+    log(f"[stream j2] {hours} h ({steps} steps, {hours} windows) without and with the prefetch, "
+        f"in turns: " + "; ".join(readings))
+
+
+def stream_phase(torch, tp, ds_a):
+    """Phases 17-18: (j2) and (j1) streamed against resident, (j2) with and
+    without the prefetch, restart on the card, (j2) streamed card against CPU."""
+    from parcels_tpu_torch.io import write_zarr_dataset
+
+    root = stream_dir()
+    if os.path.isdir(root):
+        shutil.rmtree(root)
+    try:
+        t0 = time.perf_counter()
+        ds_j2 = flat_dataset(J2_SHAPE, extent=(1e6, 1e6), seed=5, w_scale=3e-4, f32_draws=True)
+        j2, j1 = os.path.join(root, "j2.zarr"), os.path.join(root, "j1.zarr")
+        write_zarr_dataset(ds_j2, j2)
+        write_zarr_dataset(ds_a, j1)
+        log(f"[stream] wrote {J2_SHAPE} U/V/W and (24, 1, 256, 1000) U/V uncompressed, one level "
+            f"a chunk, in {time.perf_counter() - t0:.1f} s")
+        kern_j2 = [tp.AdvectionRK4_3D, delete_oob]
+        seeds_j2 = stream_seeds(tp.FieldSet.from_sgrid_conventions(ds_j2, mesh="flat"), J2_LANES,
+                                seed=6, zrange=(10.0, 490.0))
+        j2r = stream_pair(torch, tp, "j2", ds_j2, j2, seeds_j2, kern_j2, J2_DT, J2_HOURS,
+                          "slab_sample")
+
+        ms = h2d_ms(torch, j2r["window_bytes"])
+        log(f"[stream j2] one window's pinned host-to-device copy: {j2r['window_bytes']} B in "
+            f"{ms:.3f} ms ({j2r['window_bytes'] / ms / 1e6:.2f} GB/s)")
+
+        prefetch_ab(torch, tp, j2, seeds_j2, kern_j2)
+
+        seeds_j1 = stream_seeds(tp.FieldSet.from_sgrid_conventions(ds_a, mesh="flat"), J1_LANES,
+                                seed=4)
+        j1r = stream_pair(torch, tp, "j1", ds_a, j1, seeds_j1, tp.AdvectionRK4, J1_DT, J1_HOURS,
+                          "fold_sample")
+        memory_windows(torch, tp, "j1", ds_a, seeds_j1, tp.AdvectionRK4, J1_DT, J1_HOURS,
+                       j1r["streamed"])
+
+        restart_phase(torch, tp, j2, seeds_j2, kern_j2, j2r["streamed"], root)
+        stream_card_cpu(tp, j2, kern_j2)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return j2r, j1r
+
+
+def restart_phase(torch, tp, path, seeds, kernels, whole, root):
+    """Phase 18: (j2) streamed for 6 h with hourly output, checkpoint, restart
+    on a freshly opened streamed fieldset for 6 more hours; equal to the
+    uninterrupted 12 h run. Then from_particlefile on the 6 h output."""
+    half = J2_HOURS // 2
+    out = os.path.join(root, "j2_half.parquet")
+    pf = tp.ParticleFile(out, outputdt=np.timedelta64(1, "h"), mode="w")
+    first, _, st1, _ = timed_run(torch, tp, streamed_fieldset(tp, path), seeds, kernels, J2_DT,
+                                 half, output_file=pf)
+    pf.close()
+    ckpt = os.path.join(root, "j2_half.npz")
+    t0 = time.perf_counter()
+    first.checkpoint(ckpt)
+    ck_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    resumed = tp.ParticleSet.from_checkpoint(streamed_fieldset(tp, path), ckpt)
+    rs_s = time.perf_counter() - t0
+    zero_counts()
+    resumed.execute(kernels, dt=np.timedelta64(J2_DT, "s"),
+                    runtime=np.timedelta64(half * 3600, "s"))
+    l2 = counts()
+    if l2["slab_sample"] == 0:
+        raise AssertionError("restart: K2 was not launched after the restart")
+    dmax = same_run("restart", resumed, whole, rtol=1e-6, atol=0.0)
+    bits = all(np.array_equal(getattr(resumed, v), getattr(whole, v)) for v in ("x", "y", "z"))
+
+    restarted = tp.ParticleSet.from_particlefile(streamed_fieldset(tp, path), tp.Particle, out)
+    ids = first.particle_id
+    order = np.argsort(restarted.particle_id)
+    if not np.array_equal(restarted.particle_id[order], np.sort(ids)):
+        raise AssertionError("from_particlefile: the ids differ from the 6 h snapshot's")
+    by_id = np.argsort(ids)
+    for v in ("x", "y", "z"):
+        np.testing.assert_array_equal(getattr(restarted, v)[order], getattr(first, v)[by_id],
+                                      err_msg=f"from_particlefile: {v}")
+    log(f"[restart j2] {len(ids)} live particles after {half} h (hourly output, wall_s "
+        f"{st1['wall_s']}); checkpoint {ck_s:.2f} s, from_checkpoint {rs_s:.2f} s; 6 more hours "
+        f"equal the uninterrupted 12 h run: states equal, max |position difference| {dmax:.3g} m "
+        f"(bit for bit: {bits}); launches after the restart {l2}; from_particlefile: last "
+        f"snapshot's ids and positions")
+
+
+def stream_card_cpu(tp, path, kernels):
+    """(j2) streamed at 64K particles for 2 h (60 steps, two rollovers) on the
+    card and on the CPU, as phase 5 holds (b)."""
+    from parcels_tpu_torch.io import open_zarr_dataset
+
+    runs = {}
+    for d in ("cuda", "cpu"):
+        fs = tp.FieldSet.from_sgrid_conventions(open_zarr_dataset(path), mesh="flat", device=d)
+        fs.set_time_window(WINDOW)
+        seeds = stream_seeds(fs, CMP_LANES, seed=7, zrange=(10.0, 490.0))
+        runs[d] = tp.ParticleSet(fs, **seeds)
+        runs[d].execute(kernels, dt=np.timedelta64(J2_DT, "s"), runtime=np.timedelta64(2, "h"))
+        if fs.window_stats["loads"] != 3 * 2:
+            raise AssertionError(f"card vs CPU streamed on {d}: window_stats {fs.window_stats}")
+    dmax = same_run("j2 card vs cpu", runs["cuda"], runs["cpu"], rtol=1e-5, atol=0.0)
+    log(f"[card vs cpu stream j2] {CMP_LANES} particles, 60 RK4_3D steps over two windows: "
+        f"states equal, max |position difference| {dmax:.3g} m")
+
+
+def mark(t_start, done: str):
+    log(f"[time] {done} done at {time.perf_counter() - t_start:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -1396,6 +1769,7 @@ def main() -> int:
     k2 = k2_phase(torch, dev)
     edge_phase(torch, dev)
 
+    mark(t_start, "phases 1-3")
     # 4(a): K1 path
     ds_a = flat_dataset((24, 1, 256, 1000), extent=(255e3, 999e3), seed=3)
     fs_a = tp.FieldSet.from_sgrid_conventions(ds_a, mesh="flat")
@@ -1418,6 +1792,7 @@ def main() -> int:
     if lb["slab_sample"] == 0:
         raise AssertionError("K2 was not launched on the K2 path")
 
+    mark(t_start, "phase 4")
     # 5: card against CPU, 4(b) at 64K particles
     fs_cpu = tp.FieldSet.from_sgrid_conventions(ds_b, mesh="flat", device="cpu")
     runs = {}
@@ -1432,6 +1807,7 @@ def main() -> int:
     dmax = max(float(np.abs(getattr(a, v) - getattr(b, v)).max()) for v in ("x", "y", "z"))
     log(f"[card vs cpu] 64K particles, 20 RK4_3D steps: max |position difference| {dmax:.3g} m")
 
+    mark(t_start, "phase 5")
     # 6: moving eddy closed form on the card
     from parcels_tpu_torch.datasets import moving_eddy_dataset
 
@@ -1446,6 +1822,7 @@ def main() -> int:
         raise AssertionError(f"moving eddy: x {pset.x[0]} vs closed form {exp}")
     log(f"[eddy] x {pset.x[0]:.3f} closed form {exp:.3f} rel err {rel:.3g}")
 
+    mark(t_start, "phase 6")
     # 7: K3 against its plain version at the config-5 lane count, on rows of
     # the config-5 grid
     t_fs = time.perf_counter()
@@ -1456,6 +1833,7 @@ def main() -> int:
     k3 = k3_phase(torch, fs5, CONFIG5_LANES)
     torch.cuda.empty_cache()
 
+    mark(t_start, "phase 7")
     # 8: the C-grid engine path end to end at config 5: 6 steps, as the
     # first step (every persistent cache entry starts invalid) and 5 more
     seeds5 = config5_seeds(CONFIG5_LANES)
@@ -1478,6 +1856,7 @@ def main() -> int:
         f"{s8b['particle_steps_per_s']} wall_s {s8b['wall_s']} stage cache {c8b}; "
         f"launches {l8}")
 
+    mark(t_start, "phase 8")
     # 9: the K3 hit-and-repair path from the same seeds
     k9 = k3_path_phase(torch, tp, fs5, seeds5)
     log(f"[K3 path] {CONFIG5_LANES} lanes, 24 timed steps: with repair "
@@ -1491,6 +1870,7 @@ def main() -> int:
     if k9["launches"] < 25:
         raise AssertionError("K3 was not launched on every step of its path")
 
+    mark(t_start, "phase 9")
     # 10: card against CPU: phase 8 at 64K particles, and the rectilinear
     # C-grid peninsula (K1 on the card)
     seeds10 = config5_seeds(1 << 16, seed=5)
@@ -1538,14 +1918,17 @@ def main() -> int:
     del fs5
     torch.cuda.empty_cache()
 
+    mark(t_start, "phase 10")
     # 11: K4 against its plain version, then its micro-benchmark path
     k4, l11 = k4_phase(torch)
 
+    mark(t_start, "phase 11")
     # 12-14: config 3, Euler-Maruyama under K2, card against CPU
     l12 = config3_phase(tp)
     l13 = em_phase(torch, tp, ds_b)
     l14 = card_cpu_phase(torch, tp, ds_b)
 
+    mark(t_start, "phases 12-14")
     # 15-16: the UGRID path at FESOM2 scale, then card against CPU on it. The
     # path has no hand-written kernel (the JAX package's is XLA): K1-K4 stay at 0
     zero_counts()
@@ -1556,15 +1939,23 @@ def main() -> int:
         raise AssertionError("path (h) launched a structured-grid kernel")
     ux_card_cpu_phase(tp)
 
+    mark(t_start, "phases 15-16")
+    # 17-18: the store streamed a window at a time against the resident
+    # field, (j2) without prefetch, restart on the card, card against CPU
+    j2r, j1r = stream_phase(torch, tp, ds_a)
+
+    mark(t_start, "phases 17-18")
     kernels = [
         dict(name="fold_sample", route="cuda", source="parcels_tpu_torch/csrc/fold_sample.cu",
              replaces="parcels_tpu/ops/interp_kernels.py:77", launches=la["fold_sample"],
              launches_by_path={"e2e_a": la["fold_sample"], "cgrid_peninsula": lp["fold_sample"],
-                               "config3": l12, "slip": l14},
+                               "config3": l12, "slip": l14,
+                               "stream_j1": j1r["launches"]["fold_sample"]},
              **k1),
         dict(name="slab_sample", route="cuda", source="parcels_tpu_torch/csrc/slab_sample.cu",
              replaces="parcels_tpu/ops/binned_sample.py:489", launches=lb["slab_sample"],
-             launches_by_path={"e2e_b": lb["slab_sample"], "e2e_b_em": l13}, **k2),
+             launches_by_path={"e2e_b": lb["slab_sample"], "e2e_b_em": l13,
+                               "stream_j2": j2r["launches"]["slab_sample"]}, **k2),
         dict(name="fused_rk4", route="cuda", source="parcels_tpu_torch/csrc/fused_rk4.cu",
              replaces="scripts/bench_fused_rk4.py:134", launches=k9["launches"],
              launches_by_path={"k3_path": k9["launches"]}, **k3),

@@ -7,7 +7,9 @@ the NEMO and CROCO converters ``convert.nemo_to_sgrid`` and
 triangular UGRID fieldsets (``FieldSet.from_ugrid_conventions``, with the
 FESOM2 and ICON converters, the fused face-row tier and the per-face stage
 cache), the structured and UGRID interpolators, ``ParticleSet.execute`` with the advection, advection-diffusion,
-analytical and CROCO sigma-grid kernels, and Parquet trajectory output. Field sampling runs
+analytical and CROCO sigma-grid kernels, Parquet trajectory output, checkpoint and restart,
+and out-of-core forcing: zarr and NetCDF stores opened lazily (``io``) and streamed to the
+card a time window at a time (``FieldSet.set_time_window``). Field sampling runs
 through hand-written CUDA kernels for Hopper (``ops/``) on the card, and
 through their plain PyTorch versions for tensors on the CPU.
 
@@ -25,7 +27,7 @@ Quick start::
 This package never imports JAX or ``parcels_tpu``.
 """
 
-from parcels_tpu_torch import convert, kernels
+from parcels_tpu_torch import convert, io, kernels
 from parcels_tpu_torch._core.basegrid import BaseGrid
 from parcels_tpu_torch._core.field import Field, VectorField
 from parcels_tpu_torch._core.fieldset import FieldSet
@@ -67,6 +69,7 @@ from parcels_tpu_torch.interpolators import (
     XNearest,
     XPartialslip,
 )
+from parcels_tpu_torch.io.zarrstore import open_raw_zarr
 from parcels_tpu_torch.kernels import (
     AdvectionAnalytical,
     AdvectionDiffusionEM,
@@ -140,8 +143,10 @@ __all__ = [
     "convert",
     "get_default_particle",
     "get_mesh",
+    "io",
     "kernels",
     "logger",
+    "open_raw_zarr",
     "read_particlefile",
     "state_from_numpy",
 ]

@@ -22,6 +22,7 @@ from __future__ import annotations
 import os
 from typing import Callable, Sequence
 
+import numpy as np
 import torch
 
 from parcels_tpu_torch._core.particles_view import Particles, split_key
@@ -44,21 +45,26 @@ RESORT_EVERY = 16
 
 
 def _pick_sort_field(fieldset):
-    """Name of the largest field that needs the binned sampler, or None."""
+    """Name of the largest field that needs the binned sampler, or None.
+
+    Decided on the shapes the fields have on the device, a window's under a
+    time window (the JAX package reads the host's full shape; the choice
+    sets only the lane order, never a sample's value).
+    """
     from parcels_tpu_torch._core.field import Field, VectorField
     from parcels_tpu_torch.ops.binned_sample import binned_usable
     from parcels_tpu_torch.ops.interp_kernels import fits_fast_path
 
-    best = None
+    best, best_size = None, -1
     for f in fieldset.fields.values():
         cand = f.U if isinstance(f, VectorField) else f
         if not isinstance(cand, Field) or cand.data.ndim != 4:
             continue
-        shape = tuple(cand.data.shape)
+        shape = fieldset._device_shape(cand)
         if fits_fast_path(shape) or not binned_usable(shape):
             continue
-        if best is None or cand.data.size > best.data.size:
-            best = cand
+        if int(np.prod(shape)) > best_size:
+            best, best_size = cand, int(np.prod(shape))
     return best.name if best is not None else None
 
 
@@ -80,7 +86,7 @@ def _sort_worthwhile(fieldset, sort_field_name, n_block, z_occ) -> bool:
 
     f = fieldset.fields[sort_field_name]
     cand = f.U if isinstance(f, VectorField) else f
-    return plan_feasible(tuple(cand.data.shape), n_block, z_occ)
+    return plan_feasible(fieldset._device_shape(cand), n_block, z_occ)
 
 
 def _permute_soa(pdata, order):

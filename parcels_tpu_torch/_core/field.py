@@ -27,13 +27,15 @@ class Field:
     """Host-side scalar field: name + dense numpy data + grid + interpolator.
 
     Data layout is (T, Z, Y, X) on structured grids and (T, Z, N) on
-    unstructured grids (N = n_face or n_node).
+    unstructured grids (N = n_face or n_node). ``data`` may be a lazy
+    store handle (``io.LazyZarrArray``), read only a window at a time.
     """
 
     def __init__(self, name: str, data: np.ndarray, grid: BaseGrid, interp_method=None):
         if not name.isidentifier():
             raise ValueError(f"Field name must be a valid identifier, got {name!r}")
-        data = np.asarray(data)
+        if not getattr(data, "_parcels_lazy", False):
+            data = np.asarray(data)
         if data.ndim not in (3, 4):
             raise ValueError(
                 f"Field data must be (T, Z, Y, X) or unstructured (T, Z, N); got shape {data.shape}"

@@ -8,13 +8,21 @@ every field is transposed on the host to a dense (T, Z, Y, X) block, or
 (T, Z, N) on a mesh; ``device_arrays()`` ships data, grid coordinates and
 search tables to the fieldset's device once and caches them.
 
+A field opened lazily from a store (``parcels_tpu_torch.io``) keeps its
+normalization and NaN fill on its handle. ``set_time_window(L)`` streams
+the fields instead: each chunk of ``ParticleSet.execute`` reads only the L
+levels it needs, staged in pinned memory by a prefetch thread and copied to
+the card on a copy stream while the previous chunk computes
+(``_core/windowing.py``).
+
 The fieldset's device is ``cuda`` unless the caller names another; without
-CUDA the default raises instead of running on the CPU. Time windows belong
-to a later slice of the port and raise ``NotImplementedError``.
+CUDA the default raises instead of running on the CPU.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import threading
 from typing import Literal
 
 import numpy as np
@@ -25,6 +33,7 @@ from parcels_tpu_torch import xrlite as xr
 from parcels_tpu_torch._core.field import Field, FieldView, VectorField, VectorFieldView
 from parcels_tpu_torch._core.grid import GridSpec, XGrid
 from parcels_tpu_torch._core.mesh import get_mesh
+from parcels_tpu_torch._core.windowing import Stager
 from parcels_tpu_torch.interpolators import (
     CGrid_Velocity,
     XConstantField,
@@ -54,7 +63,10 @@ def _fillna(arr: np.ndarray, fill_value) -> np.ndarray:
     ``zero_data`` benchmark fieldsets and constant fields arrive as
     zero-stride broadcasts of one scalar; materializing them via
     ``np.nan_to_num`` costs gigabytes of host copies for nothing (minutes on
-    a small-core host at the true MOi resolution)."""
+    a small-core host at the true MOi resolution). A lazy handle records
+    the fill and applies it to each window it reads."""
+    if getattr(arr, "_parcels_lazy", False):
+        return arr.with_fill(fill_value)
     if arr.ndim and all(s == 0 for s in arr.strides):
         v = arr.reshape(-1)[:1]
         if not (np.issubdtype(arr.dtype, np.floating) and np.isnan(v[0])):
@@ -65,7 +77,14 @@ def _fillna(arr: np.ndarray, fill_value) -> np.ndarray:
 
 def _device_copy(data: np.ndarray, device) -> torch.Tensor:
     """A dense device tensor of ``data``. A zero-stride broadcast crosses
-    to the device as its one element and is expanded there."""
+    to the device as its one element and is expanded there; a lazy handle
+    is read whole into one host tensor, which crosses as it is."""
+    if getattr(data, "_parcels_lazy", False):
+        dtype = np.float32 if data.dtype.kind == "f" else data.dtype
+        host = torch.from_numpy(np.empty(data.shape, dtype))
+        data.read_window(0, data.shape[0], host.numpy())
+        return host.to(device)
+
     def host(a):
         a = np.ascontiguousarray(a)
         return a.astype(np.float32, copy=False) if a.dtype.kind == "f" else a
@@ -91,6 +110,13 @@ def _transpose_to_tzyx(da: xr.DataArray, metadata) -> np.ndarray:
         raise ValueError(f"DataArray {da.name!r} has two dimensions on one axis.")
     present = sorted(range(len(axes_of_dims)), key=lambda i: _ORDER.index(axes_of_dims[i]))
     present_axes = sorted(axes_of_dims, key=_ORDER.index)
+    if getattr(da.values, "_parcels_lazy", False):
+        # disk-backed field: record the normalization on the lazy handle so
+        # only the rolling time window is ever read (io/zarrstore.py)
+        src_shape = da.values.shape
+        shape = [src_shape[axes_of_dims.index(ax)] if ax in present_axes else 1 for ax in _ORDER]
+        t_store = axes_of_dims.index("T") if "T" in axes_of_dims else None
+        return da.values.with_tzyx(present, shape, t_store)
     arr = np.asarray(da.values).transpose(present)
     shape, k = [], 0
     for ax in _ORDER:
@@ -159,7 +185,15 @@ class FieldSet:
         object.__setattr__(self, "_device_cache", None)
         object.__setattr__(self, "_device_cache_key", None)
         object.__setattr__(self, "_field_tensors", {})
+        object.__setattr__(self, "_grid_tensors", {})
         object.__setattr__(self, "device", resolve_device(device))
+        object.__setattr__(self, "_time_window", None)
+        object.__setattr__(self, "_window_cache", {})
+        object.__setattr__(self, "_window_futures", {})
+        object.__setattr__(self, "_window_static", None)
+        object.__setattr__(self, "_window_pool", None)
+        object.__setattr__(self, "_window_lock", threading.Lock())
+        object.__setattr__(self, "_stager", Stager(self.device))
         for f in fields or []:
             self.add_field(f)
 
@@ -393,11 +427,200 @@ class FieldSet:
                                      interp_method=Ux_Velocity()))
         return fs
 
+    # -- rolling time-window streaming (reference _windowed_array.py) --------
     def set_time_window(self, nlevels: int):
-        raise NotImplementedError(
-            "Time windows belong to the time-windowing slice of the port; "
-            "this slice keeps every field resident on the device."
-        )
+        """Stream fields to the device in a rolling window of ``nlevels`` time
+        levels instead of resident-in-full.
+
+        Each chunk of ``ParticleSet.execute`` gets the window of levels it
+        needs; chunks at the same window reuse its device tensors. The next
+        window is read on a prefetch thread into pinned memory and copied on
+        a copy stream while the current chunk computes.
+        """
+        if nlevels < 2:
+            raise ValueError("Time window must hold at least 2 levels.")
+        object.__setattr__(self, "_time_window", int(nlevels))
+        self._apply_time_window()
+        return self
+
+    def to_windowed_arrays(self, *, max_levels: int | None = None):
+        """Reference-named alias (fieldset.py:165): serve field data through a
+        rolling time window instead of resident-in-full; returns self for
+        chaining. ``max_levels`` caps the resident levels (default 2, the
+        reference's steady-state footprint). No-op when no field has more
+        time levels than the window."""
+        nlevels = max(2, max_levels or 2)
+        if all(g.time.shape[0] <= nlevels for g in self._gridset):
+            return self
+        return self.set_time_window(nlevels)
+
+    def _apply_time_window(self):
+        for grid in self._gridset:
+            if grid.time.shape[0] > 1:
+                # a window's time values are no uniform axis from the grid's
+                # origin: the search brackets them (searchsorted over <= L),
+                # as the JAX package does. This changes tau's last bits
+                # against the resident run (scripts/window_time_spread.py)
+                grid.spec = dataclasses.replace(grid.spec, time_uniform=None)
+        self._invalidate_caches()
+        object.__setattr__(self, "window_stats", {"loads": 0, "bytes_read": 0})
+
+    def _device_shape(self, field) -> tuple:
+        """Shape of ``field``'s data on the device: its window's under a time
+        window."""
+        shape = tuple(field.data.shape)
+        if self._time_window is None or shape[0] <= 1:
+            return shape
+        return (min(self._time_window, shape[0]),) + shape[1:]
+
+    def max_window_endtime(self, t: float, sign_dt: int) -> float:
+        """Furthest chunk end time a window anchored at ``t`` can cover.
+
+        The execute loop clamps each chunk to this, so windowed runs
+        sub-chunk automatically instead of requiring outputdt to fit.
+        """
+        L = self._time_window
+        if L is None:
+            return np.inf * sign_dt
+        best = np.inf * sign_dt
+        for grid in self._gridset:
+            nt = grid.time.shape[0]
+            if nt <= 1:
+                continue
+            if sign_dt >= 0:
+                i0 = int(np.clip(np.searchsorted(grid.time, t, side="right") - 1, 0,
+                                 max(nt - L, 0)))
+                end = grid.time[min(i0 + L - 1, nt - 1)]
+                if i0 + L >= nt:
+                    end = np.inf
+                best = min(best, end)
+            else:
+                i1 = int(np.clip(np.searchsorted(grid.time, t, side="left"), L - 1, nt - 1))
+                start = grid.time[max(i1 - (L - 1), 0)]
+                if i1 - (L - 1) <= 0:
+                    start = -np.inf
+                best = max(best, start)
+        return best
+
+    def _window_offsets(self, t_lo: float, t_hi: float, check: bool = True) -> tuple:
+        """Per-grid first-level offsets of the window covering [t_lo, t_hi]."""
+        L = self._time_window
+        t_lo, t_hi = (t_lo, t_hi) if t_lo <= t_hi else (t_hi, t_lo)
+        offsets = []
+        for grid in self._gridset:
+            nt = grid.time.shape[0]
+            if nt <= 1:
+                offsets.append(0)
+                continue
+            i0 = int(np.clip(np.searchsorted(grid.time, t_lo, side="right") - 1, 0, max(nt - L, 0)))
+            if check and grid.time[min(i0 + L - 1, nt - 1)] < t_hi and i0 + L < nt:
+                raise ValueError(
+                    f"Time window of {L} levels cannot cover [{t_lo}, {t_hi}] s "
+                    f"(levels span {grid.time[i0]}..{grid.time[min(i0 + L - 1, nt - 1)]}). "
+                    "Increase the window or reduce outputdt."
+                )
+            offsets.append(i0)
+        return tuple(offsets)
+
+    def _build_window(self, offsets: tuple):
+        """Read the window's levels into staging memory and ship them to the
+        device (``windowing.Stager``); runs on the prefetch thread, or on the
+        caller's for a window that was not prefetched.
+
+        No derived table is built here: ``windowed_arrays`` attaches them on
+        the main thread (the JAX package measured eager table builds on a
+        second thread at 2.5x slower).
+        """
+        L = self._time_window
+        parts = []
+        for i, (i0, grid) in enumerate(zip(offsets, self._gridset)):
+            if grid.time.shape[0] > 1:
+                t = grid.time[i0:i0 + L].astype(np.float32)
+                parts.append((("grid", i), t.shape, t.dtype, _copier(t)))
+        loads = nbytes = 0
+        for name, f in self._fields.items():
+            if isinstance(f, Field) and f.data.shape[0] > 1:
+                i0 = offsets[f.igrid]
+                n = min(L, f.data.shape[0] - i0)
+                shape = (n,) + tuple(f.data.shape[1:])
+                parts.append((("field", name), shape, f.data.dtype, _level_reader(f.data, i0, n)))
+                loads += 1
+                nbytes += int(np.prod(shape)) * f.data.dtype.itemsize
+        window = self._stager.stage(parts)
+        with self._window_lock:
+            self.window_stats["loads"] += loads
+            self.window_stats["bytes_read"] += nbytes
+        return window
+
+    def prefetch_window(self, t_anchor: float) -> None:
+        """Stage the window anchored at ``t_anchor`` on the prefetch thread.
+
+        Called by the execute loop right after queueing a chunk, so the next
+        window's reads and its copy to the device overlap the chunk's
+        compute. A mispredicted anchor is harmless: ``windowed_arrays``
+        then loads its window synchronously.
+        """
+        if self._time_window is None:
+            return
+        key = self._window_offsets(t_anchor, t_anchor, check=False)
+        futures = self._window_futures
+        if key in self._window_cache or key in futures:
+            return
+        # bound mispredicted windows: drop finished futures nobody consumed
+        if len(futures) >= 2:
+            for k in [k for k, f in futures.items() if f.done()]:
+                futures.pop(k)
+        if self._window_pool is None:
+            from concurrent.futures import ThreadPoolExecutor
+
+            pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="parcels-window")
+            object.__setattr__(self, "_window_pool", pool)
+        futures[key] = self._window_pool.submit(self._build_window, key)
+
+    def windowed_arrays(self, t_lo: float, t_hi: float) -> dict:
+        """Device tensors whose time axes cover [t_lo, t_hi] (window mode).
+
+        Keeps the current window plus at most one prefetched successor; a
+        window's first use makes the current stream wait for its copy.
+        """
+        if self._time_window is None:
+            return self.device_arrays()
+        key = self._window_offsets(t_lo, t_hi)
+        cache = self._window_cache
+        if key not in cache:
+            fut = self._window_futures.pop(key, None)
+            window = fut.result() if fut is not None else self._build_window(key)
+            cache[key] = self._window_farrays(window)
+        farrays = cache.pop(key)
+        cache.clear()
+        cache[key] = farrays
+        return farrays
+
+    def _window_farrays(self, window) -> dict:
+        """The farrays of a staged window: its tensors over the resident
+        (time-invariant) field and grid tensors and the cell tables."""
+        from parcels_tpu_torch.ops import uxcol
+        from parcels_tpu_torch.ops.stagecache import attach_derived_tables
+
+        mode = uxcol._mode()
+        if self._window_static is None or self._window_static[0] != mode:
+            static = {
+                "fields": {name: self._field_tensor(name) for name, f in self._fields.items()
+                           if isinstance(f, Field) and f.data.shape[0] <= 1},
+                "grids": self._grid_arrays(),
+            }
+            attach_derived_tables(self, static)  # grid-only tables: built once
+            object.__setattr__(self, "_window_static", (mode, static))
+        static = self._window_static[1]
+        farrays = {"fields": dict(static["fields"]), "grids": [dict(g) for g in static["grids"]]}
+        if "celltables" in static:
+            farrays["celltables"] = static["celltables"]
+        for (kind, key), tensor in window.publish().items():
+            if kind == "grid":
+                farrays["grids"][key]["time"] = tensor
+            else:
+                farrays["fields"][key] = tensor
+        return farrays
 
     # -- device tensors ------------------------------------------------------
     def _invalidate_caches(self):
@@ -405,13 +628,43 @@ class FieldSet:
         ``interp_method`` (and the tables it needs) is seen."""
         object.__setattr__(self, "_device_cache", None)
         object.__setattr__(self, "_field_tensors", {})
+        object.__setattr__(self, "_grid_tensors", {})
+        object.__setattr__(self, "_window_cache", {})
+        object.__setattr__(self, "_window_static", None)
+
+    def _field_tensor(self, name: str) -> torch.Tensor:
+        """The whole of field ``name`` on the device; crosses once."""
+        fields = self._field_tensors
+        if name not in fields:
+            data = self._fields[name].data
+            if getattr(data, "_parcels_lazy", False) and data.nbytes > 4 << 30:
+                raise ValueError(
+                    f"Field {name!r} is disk-backed and {data.nbytes / 2**30:.1f} GiB; "
+                    "call fieldset.set_time_window(nlevels) to stream it instead of "
+                    "materializing it whole."
+                )
+            fields[name] = _device_copy(data, self.device)
+        return fields[name]
+
+    def _grid_arrays(self) -> list:
+        """Every grid's coordinate and search tensors on the device, cached.
+
+        The UGRID face table rides in them only while the ``uxcol`` tier is
+        on, so the cache is keyed on that mode.
+        """
+        from parcels_tpu_torch.ops import uxcol
+
+        key = uxcol._mode()
+        if key not in self._grid_tensors:
+            self._grid_tensors[key] = [grid.device_arrays(self.device) for grid in self._gridset]
+        return self._grid_tensors[key]
 
     def device_arrays(self) -> dict:
         """All field data + grid coordinates on the fieldset's device; cached.
 
-        The UGRID face table rides in the grid tensors only while the
-        ``uxcol`` tier is on, so the cache is keyed on that mode; the field
-        tensors cross to the device once whatever the mode.
+        Keyed on the ``uxcol`` mode as the grid tensors are; the field
+        tensors cross to the device once whatever the mode. A disk-backed
+        field over 4 GiB is refused: stream it with ``set_time_window``.
         """
         from parcels_tpu_torch.ops import uxcol
         from parcels_tpu_torch.ops.stagecache import attach_derived_tables
@@ -419,13 +672,10 @@ class FieldSet:
         key = uxcol._mode()
         if self._device_cache is not None and self._device_cache_key == key:
             return self._device_cache
-        fields = self._field_tensors
-        for name, f in self._fields.items():
-            if isinstance(f, Field) and name not in fields:
-                fields[name] = _device_copy(f.data, self.device)
         farrays = {
-            "fields": dict(fields),
-            "grids": [grid.device_arrays(self.device) for grid in self._gridset],
+            "fields": {name: self._field_tensor(name) for name, f in self._fields.items()
+                       if isinstance(f, Field)},
+            "grids": self._grid_arrays(),
         }
         attach_derived_tables(self, farrays)
         object.__setattr__(self, "_device_cache", farrays)
@@ -486,6 +736,17 @@ class FieldSet:
 
     def __repr__(self) -> str:
         return f"FieldSet(fields={list(self._fields)}, device={self.device})"
+
+
+def _copier(values: np.ndarray):
+    return lambda out: np.copyto(out, values, casting="unsafe")
+
+
+def _level_reader(data, i0: int, n: int):
+    """Writes time levels [i0, i0 + n) of ``data`` into a staging array."""
+    if getattr(data, "_parcels_lazy", False):
+        return lambda out: data.read_window(i0, i0 + n, out)
+    return _copier(data[i0:i0 + n])
 
 
 class FieldSetView:

@@ -5,7 +5,11 @@ Port of the single-device path of the JAX package's
 device. ``execute`` drives the engine (``engine.run_chunk``) one
 output-interval chunk at a time, streams trajectory snapshots to the
 ParticleFile writer, and raises the reference's typed exceptions if any
-particle ends a chunk in an error state.
+particle ends a chunk in an error state. Under ``FieldSet.set_time_window``
+each chunk is clamped to what one window covers, and the next window is
+prefetched while the chunk runs. ``checkpoint``/``from_checkpoint`` save
+and restore the whole SoA; ``from_particlefile`` restarts from a written
+trajectory file.
 
 Particle meshes and domain decomposition belong to the scale-out slice of
 the port; the lockstep time window of the JAX package is not ported (the
@@ -180,10 +184,10 @@ class ParticleSet:
 
     def populate_indices(self):
         """Pre-populate the cached element indices (warm start and sort keys)."""
-        farrays = self.fieldset.device_arrays()
+        garrs = self.fieldset._grid_arrays()
         ei = self._data["ei"].clone()
         for i, grid in enumerate(self.fieldset.gridset):
-            gpos = grid.make_view(farrays["grids"][i]).search(
+            gpos = grid.make_view(garrs[i]).search(
                 self._data["z"], self._data["y"], self._data["x"]
             )
             if "FACE" in gpos:
@@ -194,6 +198,55 @@ class ParticleSet:
             xi = torch.clamp(gpos["X"]["index"], 0, max(grid.xdim - 1, 0))
             ei[:, i] = grid.ravel_index(zi, yi, xi).to(ei.dtype)
         self._data["ei"] = ei
+
+    # -- checkpoint / restart ------------------------------------------------
+    def checkpoint(self, path: str):
+        """Write the full particle state to an .npz checkpoint: every SoA
+        column, including non-written variables, the validity mask, the
+        (2,) uint32 RNG key ``_rng``, the clock carry ``_tc`` and the
+        persistent cache columns (``_sc_*``, ``_uxc_*``)."""
+        np.savez_compressed(path, **{k: _host(v) for k, v in self._data.items()})
+
+    @classmethod
+    def from_checkpoint(cls, fieldset, path: str, pclass=Particle):
+        """Restore a ParticleSet exactly as checkpointed (ids, states, RNG
+        key, caches), on ``fieldset``'s device. Reads the JAX package's
+        checkpoints too."""
+        with np.load(path) as npz:
+            data = {k: npz[k] for k in npz.files}
+        if "_tc" not in data:  # checkpoints written before the Kahan clock
+            data["_tc"] = np.zeros_like(np.asarray(data["t"]), dtype=np.float32)
+        pset = cls.__new__(cls)
+        pset.fieldset = fieldset
+        pset._pclass = pclass
+        pset._data = {k: _to_device(v, "cpu" if k == "_rng" else fieldset.device)
+                      for k, v in data.items()}
+        return pset
+
+    @classmethod
+    def from_particlefile(cls, fieldset, pclass, filename, restart=True, restarttime=None,
+                          **kwargs):
+        """Restart a ParticleSet from a written trajectory file: the last (or
+        requested) output time of each trajectory seeds the particles,
+        keeping their ids when ``restart=True``."""
+        from parcels_tpu_torch._core.particlefile import read_particlefile
+
+        df = read_particlefile(filename, decode_times=False)
+        if restarttime is None:
+            restarttime = df["t"].max()
+        elif callable(restarttime):
+            restarttime = restarttime(df["t"].values)
+        sel = df[df["t"] == restarttime]
+        return cls(
+            fieldset=fieldset,
+            pclass=pclass,
+            t=sel["t"].values.astype(np.float64),
+            z=sel["z"].values if "z" in sel else None,
+            y=sel["y"].values,
+            x=sel["x"].values,
+            particle_ids=sel["particle_id"].values if restart else None,
+            **kwargs,
+        )
 
     # -- execution -----------------------------------------------------------
     def execute(self, kernels, dt, endtime=None, runtime=None, output_file=None,
@@ -266,7 +319,8 @@ class ParticleSet:
             # sort keys come from the ei cache; seed it so the FIRST chunk
             # bins correctly instead of overflowing to the gather fix-up
             self.populate_indices()
-        farrays = self.fieldset.device_arrays()
+        windowed = self.fieldset._time_window is not None
+        farrays = None if windowed else self.fieldset.device_arrays()
         dev = dict(self._data)
 
         if output_file is not None:
@@ -321,6 +375,32 @@ class ParticleSet:
                 next_time = f(next_output, end_time) if next_output is not None else end_time
                 if cur_chunk > 0 and dt:
                     next_time = f(next_time, time + sign_dt * cur_chunk * abs(dt))
+                if windowed:
+                    next_time = f(next_time, self.fieldset.max_window_endtime(time, sign_dt))
+                    prev_farrays = farrays
+                    farrays = self.fieldset.windowed_arrays(time, next_time)
+                    if farrays is not prev_farrays:
+                        # a new window: the persistent caches hold face values
+                        # at the previous window's time indices (the JAX package
+                        # invalidates at every windowed chunk; the caches are
+                        # exact, so a hit inside one window equals a repair)
+                        dev = stagecache.invalidate_soa_cache(dev)
+                        if pending is not None:
+                            # rollover drains the pipeline, so at most two
+                            # windows' slabs are live at once
+                            stop0 = drain(pending)
+                            pending = None
+                            if stop0:
+                                break
+                if windowed and sign_dt * (next_time - end_time) < 0:
+                    # stage the next window while this chunk runs. The chunk's
+                    # eager steps occupy this thread until run_chunk returns,
+                    # so the read is issued before it (the JAX package issues
+                    # it after its asynchronous dispatch). Forward chunks
+                    # anchor at next_time, backward ones at an estimate (a
+                    # miss costs one synchronous load)
+                    anchor = next_time if sign_dt > 0 else next_time + (next_time - time)
+                    self.fieldset.prefetch_window(anchor)
                 dev = run_chunk(
                     self.fieldset, kernels, farrays, dev,
                     torch.tensor(np.float32(next_time), **f32), dt_dev,

@@ -21,7 +21,30 @@ def test_import_leaves_jax_out():
         "import parcels_tpu_torch.ops.uxcol, parcels_tpu_torch.ops.uxcache; "
         "import parcels_tpu_torch._core.uxgrid, parcels_tpu_torch.native; "
         "import parcels_tpu_torch.interpolators.uxinterp, parcels_tpu_torch.datasets.unstructured; "
+        "import parcels_tpu_torch.io, parcels_tpu_torch._core.windowing; "
         "bad = [m for m in ('jax', 'parcels_tpu') if m in sys.modules]; "
+        "assert not bad, bad"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT, env=env, timeout=120)
+
+
+def test_io_imports_without_tensorstore_or_h5py():
+    """The store modules import, and read zarr with numpy, on a host without
+    tensorstore, h5py or JAX (as the card's machine is)."""
+    code = (
+        "import sys; sys.modules.update(tensorstore=None, h5py=None, jax=None); "
+        "import parcels_tpu_torch, parcels_tpu_torch.io; "
+        "from parcels_tpu_torch.io import netcdfstore, zarrstore; "
+        "assert parcels_tpu_torch.open_raw_zarr is zarrstore.open_raw_zarr; "
+        "assert parcels_tpu_torch.io.open_netcdf_dataset is netcdfstore.open_netcdf_dataset; "
+        "import tempfile, os, numpy as np; "
+        "from parcels_tpu_torch.datasets import moving_eddy_dataset; "
+        "d = os.path.join(tempfile.mkdtemp(), 'e.zarr'); "
+        "zarrstore.write_zarr_dataset(moving_eddy_dataset(), d, compressor='zlib'); "
+        "u = zarrstore.open_zarr_dataset(d)['U'].values[3:5]; "
+        "assert np.array_equal(u, moving_eddy_dataset()['U'].values[3:5]); "
+        "bad = [m for m in ('jax', 'parcels_tpu') if sys.modules.get(m) is not None]; "
         "assert not bad, bad"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))

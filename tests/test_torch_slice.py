@@ -252,6 +252,20 @@ def _later_slice_cases():
 
 @pytest.mark.parametrize("case", ["window", "particle_mesh", "domain"])
 def test_later_slice_features_raise(case):
+    """Features of later slices raise until their slice lands. Time windows
+    have landed: the window case now streams and matches the resident run
+    (rtol 1e-6, atol 1e-3 m, the tolerance of tests/test_windowing.py)."""
+    if case == "window":
+        _, resident = _fieldsets((4, 1, 8, 8))
+        _, windowed = _fieldsets((4, 1, 8, 8))
+        assert windowed.set_time_window(2) is windowed
+        seeds = _seeds(16, (4, 1, 8, 8))
+        a = _run(windowed, "torch", tp.AdvectionRK4, seeds)
+        b = _run(resident, "torch", tp.AdvectionRK4, seeds)
+        for v in ("x", "y"):
+            np.testing.assert_allclose(getattr(a, v), getattr(b, v), rtol=1e-6, atol=1e-3)
+        assert windowed.window_stats["loads"] > 0
+        return
     with pytest.raises(NotImplementedError):
         _later_slice_cases()[case]()
 
