@@ -92,9 +92,11 @@ counter is set to 0 just before a path runs and read just after):
     run through ``ParticleSet.execute``: (j2) 2M particles,
     ``[AdvectionRK4_3D, delete_oob]`` at dt 120 s for 12 h (K2 must
     launch); (j1) 1M particles, AdvectionRK4 at dt 300 s for 23 h (K1 must
-    launch). Every window, at its first use, equals the in-memory
-    dataset's levels bit for bit on the card; (j1) also equals, bit for
-    bit, the same windows taken from memory. Then the same seeds on the
+    launch). Each streamed run equals, bit for bit, the same windows taken
+    from memory; (j1) also equals a second, untimed streamed run that holds
+    every window, at its first use, bit for bit against the in-memory
+    dataset's levels on the card (phase 18 does so for (j2)'s windows).
+    Then the same seeds on the
     resident in-memory fieldset: states and activity equal on every lane,
     the position spread printed (the resident axis rounds the time
     position coarser, in both packages: ``stream_pair``); ``window_stats``
@@ -105,7 +107,8 @@ counter is set to 0 just before a path runs and read just after):
     in turns;
 18. restart on the card: (j2) streamed for 6 h with hourly Parquet output,
     ``checkpoint``, ``from_checkpoint`` on a freshly opened streamed
-    fieldset, 6 more hours: equal to phase 17's 12 h run (states equal,
+    fieldset, 6 more hours, every window held at its first use against the
+    dataset's levels: equal to phase 17's 12 h run (states equal,
     positions within rtol 1e-6; the largest difference and whether it is
     bit for bit are printed); ``from_particlefile`` on the output returns
     the 6 h snapshot's ids and positions. Then (j2) streamed at 64K
@@ -200,35 +203,43 @@ def bound(nbytes, nops):
     return 1e3 * max(b, o), ("bytes" if b >= o else "operations")
 
 
-def flat_dataset(shape, extent, seed, w_scale=None, f32_draws=False):
-    """A flat rectilinear U/V(/W) dataset with random velocities (drawn in
-    f32 with ``f32_draws``, which halves the host time at gigabyte sizes)."""
+def flat_dataset(shape, extent, seed, w_scale=None):
+    """A flat rectilinear U/V(/W) dataset with random velocities."""
+    rng = np.random.default_rng(seed)
+    data = {c: rng.uniform(-0.3, 0.3, shape).astype(np.float32) for c in ("U", "V")}
+    if w_scale is not None:
+        data["W"] = (rng.uniform(-1, 1, shape) * w_scale).astype(np.float32)
+    return flat_dataset_of(data, extent)
+
+
+def j2_dataset():
+    """(j2)'s 1.95 GB U/V/W, drawn in f32 (half the host time of f64 draws)."""
+    rng = np.random.default_rng(5)
+
+    def uniform(scale):
+        a = rng.random(J2_SHAPE, dtype=np.float32)
+        a *= np.float32(2 * scale)
+        a -= np.float32(scale)
+        return a
+
+    return flat_dataset_of({"U": uniform(0.3), "V": uniform(0.3), "W": uniform(3e-4)},
+                           extent=(1e6, 1e6))
+
+
+def flat_dataset_of(data, extent):
+    """An SGRID dataset of the (T, Z, Y, X) arrays in ``data`` on a flat
+    rectilinear grid over ``extent`` (m), with hourly levels."""
     from parcels_tpu_torch import xrlite as xr
     from parcels_tpu_torch.datasets.structured import _coords_2d, _wrap_sgrid
 
-    T, Z, Y, X = shape
+    T, Z, Y, X = next(iter(data.values())).shape
     lon = np.linspace(0.0, extent[1], X)
     lat = np.linspace(0.0, extent[0], Y)
     depth = np.linspace(0.0, 500.0, Z) if Z > 1 else np.array([0.0])
     taxis = np.array([np.datetime64("2000-01-01") + np.timedelta64(3600 * i, "s") for i in range(T)])
-    rng = np.random.default_rng(seed)
     dims = ["time", "depth", "YG", "XG"]
-
-    if f32_draws:
-        def uniform(scale):
-            a = rng.random(shape, dtype=np.float32)
-            a *= np.float32(2 * scale)
-            a -= np.float32(scale)
-            return a
-
-        data = {c: (dims, uniform(0.3)) for c in ("U", "V")}
-        if w_scale is not None:
-            data["W"] = (dims, uniform(w_scale))
-    else:
-        data = {c: (dims, rng.uniform(-0.3, 0.3, shape).astype(np.float32)) for c in ("U", "V")}
-        if w_scale is not None:
-            data["W"] = (dims, (rng.uniform(-1, 1, shape) * w_scale).astype(np.float32))
-    ds = xr.Dataset(data, coords=_coords_2d(lon, lat, time=taxis, depth=depth, mesh="flat"))
+    ds = xr.Dataset({c: (dims, a) for c, a in data.items()},
+                    coords=_coords_2d(lon, lat, time=taxis, depth=depth, mesh="flat"))
     return _wrap_sgrid(ds, X, Y)
 
 
@@ -1554,16 +1565,15 @@ def spread(a, b, rtol=1e-6, atol=1e-3):
 
 
 def stream_pair(torch, tp, name, ds, path, seeds, kernels, dt_s, hours, kernel):
-    """Phase 17 for one path: streamed from the store (every window held bit
-    for bit against the in-memory dataset's levels on the card), then the
-    in-memory dataset resident on the card, with equal states and activity
+    """Phase 17 for one path: streamed from the store, then the in-memory
+    dataset resident on the card, with equal states and activity
     on every lane and its position spread printed. A resident axis of T
     levels brackets t with the O(1) uniform formula and K1/K2 fold ``index
     + tau`` into one f32, so tau keeps fewer bits than in a 2-level window,
     in both packages alike (``scripts/window_time_spread.py``); a random
     field grows that over a run. ``kernel`` must launch on the streamed run."""
     fs = streamed_fieldset(tp, path)
-    rec = watch_windows(fs, ds)
+    rec = watch_windows(fs)
     s_set, s_l, s_st, s_peak = timed_run(torch, tp, fs, seeds, kernels, dt_s, hours)
     want = reckoned_stats(tp, fs, rec["keys"])
     if fs.window_stats != want:
@@ -1595,8 +1605,7 @@ def stream_pair(torch, tp, name, ds, path, seeds, kernels, dt_s, hours, kernel):
         f"{r_peak} B (saved {r_peak - s_peak} B); host s in windowed_arrays "
         f"{rec['wait_s']:.4f} over {len(rec['keys'])} windows; window_stats loads "
         f"{want['loads']} bytes_read {want['bytes_read']} (= reckoned); launches streamed "
-        f"{s_l}, resident {r_l}; every window equal to the dataset's levels on the card; "
-        f"against the resident run: states and activity equal, max |position difference| "
+        f"{s_l}, resident {r_l}; against the resident run: states and activity equal, max |position difference| "
         f"{r_max:.4g} m, share of lanes beyond rtol 1e-6 / atol 1e-3 {r_over:.6f}")
     return dict(streamed=s_set, launches=s_l, stats=s_st, peak=s_peak, resident_stats=r_st,
                 resident_peak=r_peak, wait_s=rec["wait_s"], windows=len(rec["keys"]),
@@ -1606,15 +1615,30 @@ def stream_pair(torch, tp, name, ds, path, seeds, kernels, dt_s, hours, kernel):
 def memory_windows(torch, tp, name, ds, seeds, kernels, dt_s, hours, streamed):
     """The streamed run equals, bit for bit, the same windows taken from the
     in-memory dataset (the store, the pinned staging and the copy stream
-    change nothing end to end)."""
+    change nothing end to end, over every window's whole life)."""
     fs = tp.FieldSet.from_sgrid_conventions(ds, mesh="flat")
     fs.set_time_window(WINDOW)
     m_set, _, st, _ = timed_run(torch, tp, fs, seeds, kernels, dt_s, hours)
-    for v in ("x", "y", "z", "state"):
-        np.testing.assert_array_equal(getattr(streamed, v), getattr(m_set, v),
-                                      err_msg=f"{name}: streamed against in-memory windows: {v}")
+    equal_runs(f"{name}: streamed against in-memory windows", streamed, m_set)
     log(f"[stream {name}] the same windows from memory (particle_steps_per_s "
         f"{st['particle_steps_per_s']}): equal to the streamed run bit for bit")
+
+
+def checked_stream(torch, tp, name, ds, path, seeds, kernels, dt_s, hours, streamed):
+    """A second streamed run, untimed, whose every window is held bit for bit
+    against ``ds``'s levels at its first use; it equals the timed run bit
+    for bit."""
+    fs = streamed_fieldset(tp, path)
+    rec = watch_windows(fs, ds)
+    c_set, _, _, _ = timed_run(torch, tp, fs, seeds, kernels, dt_s, hours)
+    equal_runs(f"{name}: checked against timed streamed run", streamed, c_set)
+    log(f"[stream {name}] a checked streamed run: each of its {len(rec['keys'])} windows equal "
+        f"to the dataset's levels on the card; equal to the timed run bit for bit")
+
+
+def equal_runs(what, a, b):
+    for v in ("x", "y", "z", "state"):
+        np.testing.assert_array_equal(getattr(a, v), getattr(b, v), err_msg=f"{what}: {v}")
 
 
 def prefetch_ab(torch, tp, path, seeds, kernels, hours=2):
@@ -1646,7 +1670,7 @@ def stream_phase(torch, tp, ds_a):
         shutil.rmtree(root)
     try:
         t0 = time.perf_counter()
-        ds_j2 = flat_dataset(J2_SHAPE, extent=(1e6, 1e6), seed=5, w_scale=3e-4, f32_draws=True)
+        ds_j2 = j2_dataset()
         j2, j1 = os.path.join(root, "j2.zarr"), os.path.join(root, "j1.zarr")
         write_zarr_dataset(ds_j2, j2)
         write_zarr_dataset(ds_a, j1)
@@ -1657,6 +1681,8 @@ def stream_phase(torch, tp, ds_a):
                                 seed=6, zrange=(10.0, 490.0))
         j2r = stream_pair(torch, tp, "j2", ds_j2, j2, seeds_j2, kern_j2, J2_DT, J2_HOURS,
                           "slab_sample")
+        memory_windows(torch, tp, "j2", ds_j2, seeds_j2, kern_j2, J2_DT, J2_HOURS,
+                       j2r["streamed"])
 
         ms = h2d_ms(torch, j2r["window_bytes"])
         log(f"[stream j2] one window's pinned host-to-device copy: {j2r['window_bytes']} B in "
@@ -1670,30 +1696,37 @@ def stream_phase(torch, tp, ds_a):
                           "fold_sample")
         memory_windows(torch, tp, "j1", ds_a, seeds_j1, tp.AdvectionRK4, J1_DT, J1_HOURS,
                        j1r["streamed"])
+        checked_stream(torch, tp, "j1", ds_a, j1, seeds_j1, tp.AdvectionRK4, J1_DT, J1_HOURS,
+                       j1r["streamed"])
 
-        restart_phase(torch, tp, j2, seeds_j2, kern_j2, j2r["streamed"], root)
+        restart_phase(torch, tp, ds_j2, j2, seeds_j2, kern_j2, j2r["streamed"], root)
         stream_card_cpu(tp, j2, kern_j2)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return j2r, j1r
 
 
-def restart_phase(torch, tp, path, seeds, kernels, whole, root):
+def restart_phase(torch, tp, ds, path, seeds, kernels, whole, root):
     """Phase 18: (j2) streamed for 6 h with hourly output, checkpoint, restart
     on a freshly opened streamed fieldset for 6 more hours; equal to the
-    uninterrupted 12 h run. Then from_particlefile on the 6 h output."""
+    uninterrupted 12 h run. The two halves hold each of the 12 windows, at
+    its first use, bit for bit against ``ds``'s levels on the card. Then
+    from_particlefile on the 6 h output."""
     half = J2_HOURS // 2
     out = os.path.join(root, "j2_half.parquet")
     pf = tp.ParticleFile(out, outputdt=np.timedelta64(1, "h"), mode="w")
-    first, _, st1, _ = timed_run(torch, tp, streamed_fieldset(tp, path), seeds, kernels, J2_DT,
-                                 half, output_file=pf)
+    fs = streamed_fieldset(tp, path)
+    rec = watch_windows(fs, ds)
+    first, _, st1, _ = timed_run(torch, tp, fs, seeds, kernels, J2_DT, half, output_file=pf)
     pf.close()
     ckpt = os.path.join(root, "j2_half.npz")
     t0 = time.perf_counter()
     first.checkpoint(ckpt)
     ck_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    resumed = tp.ParticleSet.from_checkpoint(streamed_fieldset(tp, path), ckpt)
+    fs = streamed_fieldset(tp, path)
+    rec2 = watch_windows(fs, ds)
+    resumed = tp.ParticleSet.from_checkpoint(fs, ckpt)
     rs_s = time.perf_counter() - t0
     zero_counts()
     resumed.execute(kernels, dt=np.timedelta64(J2_DT, "s"),
@@ -1713,7 +1746,8 @@ def restart_phase(torch, tp, path, seeds, kernels, whole, root):
     for v in ("x", "y", "z"):
         np.testing.assert_array_equal(getattr(restarted, v)[order], getattr(first, v)[by_id],
                                       err_msg=f"from_particlefile: {v}")
-    log(f"[restart j2] {len(ids)} live particles after {half} h (hourly output, wall_s "
+    log(f"[restart j2] {len(rec['keys'] | rec2['keys'])} windows, each equal to the dataset's "
+        f"levels on the card; {len(ids)} live particles after {half} h (hourly output, wall_s "
         f"{st1['wall_s']}); checkpoint {ck_s:.2f} s, from_checkpoint {rs_s:.2f} s; 6 more hours "
         f"equal the uninterrupted 12 h run: states equal, max |position difference| {dmax:.3g} m "
         f"(bit for bit: {bits}); launches after the restart {l2}; from_particlefile: last "

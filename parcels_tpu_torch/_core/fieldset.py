@@ -22,7 +22,6 @@ CUDA the default raises instead of running on the CPU.
 from __future__ import annotations
 
 import dataclasses
-import threading
 from typing import Literal
 
 import numpy as np
@@ -33,7 +32,7 @@ from parcels_tpu_torch import xrlite as xr
 from parcels_tpu_torch._core.field import Field, FieldView, VectorField, VectorFieldView
 from parcels_tpu_torch._core.grid import GridSpec, XGrid
 from parcels_tpu_torch._core.mesh import get_mesh
-from parcels_tpu_torch._core.windowing import Stager
+from parcels_tpu_torch._core.windowing import TimeWindow
 from parcels_tpu_torch.interpolators import (
     CGrid_Velocity,
     XConstantField,
@@ -185,15 +184,8 @@ class FieldSet:
         object.__setattr__(self, "_device_cache", None)
         object.__setattr__(self, "_device_cache_key", None)
         object.__setattr__(self, "_field_tensors", {})
-        object.__setattr__(self, "_grid_tensors", {})
         object.__setattr__(self, "device", resolve_device(device))
-        object.__setattr__(self, "_time_window", None)
-        object.__setattr__(self, "_window_cache", {})
-        object.__setattr__(self, "_window_futures", {})
-        object.__setattr__(self, "_window_static", None)
-        object.__setattr__(self, "_window_pool", None)
-        object.__setattr__(self, "_window_lock", threading.Lock())
-        object.__setattr__(self, "_stager", Stager(self.device))
+        object.__setattr__(self, "_window", None)  # a TimeWindow under set_time_window
         for f in fields or []:
             self.add_field(f)
 
@@ -439,9 +431,21 @@ class FieldSet:
         """
         if nlevels < 2:
             raise ValueError("Time window must hold at least 2 levels.")
-        object.__setattr__(self, "_time_window", int(nlevels))
+        object.__setattr__(self, "_window", TimeWindow(self.device, int(nlevels)))
         self._apply_time_window()
         return self
+
+    @property
+    def _time_window(self) -> int | None:
+        """Levels a window holds; None without a time window."""
+        return None if self._window is None else self._window.nlevels
+
+    @property
+    def window_stats(self) -> dict:
+        """Loads (fields) and bytes read into windows since ``set_time_window``."""
+        if self._window is None:
+            raise AttributeError("window_stats: no time window is set")
+        return self._window.stats
 
     def to_windowed_arrays(self, *, max_levels: int | None = None):
         """Reference-named alias (fieldset.py:165): serve field data through a
@@ -463,7 +467,6 @@ class FieldSet:
                 # against the resident run (scripts/window_time_spread.py)
                 grid.spec = dataclasses.replace(grid.spec, time_uniform=None)
         self._invalidate_caches()
-        object.__setattr__(self, "window_stats", {"loads": 0, "bytes_read": 0})
 
     def _device_shape(self, field) -> tuple:
         """Shape of ``field``'s data on the device: its window's under a time
@@ -546,11 +549,7 @@ class FieldSet:
                 parts.append((("field", name), shape, f.data.dtype, _level_reader(f.data, i0, n)))
                 loads += 1
                 nbytes += int(np.prod(shape)) * f.data.dtype.itemsize
-        window = self._stager.stage(parts)
-        with self._window_lock:
-            self.window_stats["loads"] += loads
-            self.window_stats["bytes_read"] += nbytes
-        return window
+        return self._window.stage(parts, loads, nbytes)
 
     def prefetch_window(self, t_anchor: float) -> None:
         """Stage the window anchored at ``t_anchor`` on the prefetch thread.
@@ -560,22 +559,10 @@ class FieldSet:
         compute. A mispredicted anchor is harmless: ``windowed_arrays``
         then loads its window synchronously.
         """
-        if self._time_window is None:
+        if self._window is None:
             return
         key = self._window_offsets(t_anchor, t_anchor, check=False)
-        futures = self._window_futures
-        if key in self._window_cache or key in futures:
-            return
-        # bound mispredicted windows: drop finished futures nobody consumed
-        if len(futures) >= 2:
-            for k in [k for k, f in futures.items() if f.done()]:
-                futures.pop(k)
-        if self._window_pool is None:
-            from concurrent.futures import ThreadPoolExecutor
-
-            pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="parcels-window")
-            object.__setattr__(self, "_window_pool", pool)
-        futures[key] = self._window_pool.submit(self._build_window, key)
+        self._window.prefetch(key, self._build_window)
 
     def windowed_arrays(self, t_lo: float, t_hi: float) -> dict:
         """Device tensors whose time axes cover [t_lo, t_hi] (window mode).
@@ -583,35 +570,38 @@ class FieldSet:
         Keeps the current window plus at most one prefetched successor; a
         window's first use makes the current stream wait for its copy.
         """
-        if self._time_window is None:
+        if self._window is None:
             return self.device_arrays()
         key = self._window_offsets(t_lo, t_hi)
-        cache = self._window_cache
-        if key not in cache:
-            fut = self._window_futures.pop(key, None)
-            window = fut.result() if fut is not None else self._build_window(key)
-            cache[key] = self._window_farrays(window)
-        farrays = cache.pop(key)
-        cache.clear()
-        cache[key] = farrays
-        return farrays
+        return self._window.take(key, self._build_window, self._window_farrays)
 
-    def _window_farrays(self, window) -> dict:
-        """The farrays of a staged window: its tensors over the resident
-        (time-invariant) field and grid tensors and the cell tables."""
+    def _window_static(self) -> dict:
+        """What every window shares: the time-invariant field tensors, the
+        grid tensors and the cell tables (built once a ``uxcol`` mode)."""
         from parcels_tpu_torch.ops import uxcol
         from parcels_tpu_torch.ops.stagecache import attach_derived_tables
 
         mode = uxcol._mode()
-        if self._window_static is None or self._window_static[0] != mode:
+        if self._window.static is None or self._window.static[0] != mode:
             static = {
                 "fields": {name: self._field_tensor(name) for name, f in self._fields.items()
                            if isinstance(f, Field) and f.data.shape[0] <= 1},
-                "grids": self._grid_arrays(),
+                "grids": [grid.device_arrays(self.device) for grid in self._gridset],
             }
-            attach_derived_tables(self, static)  # grid-only tables: built once
-            object.__setattr__(self, "_window_static", (mode, static))
-        static = self._window_static[1]
+            attach_derived_tables(self, static)  # grid-only tables
+            self._window.static = (mode, static)
+        return self._window.static[1]
+
+    def _grid_arrays(self) -> list:
+        """Every grid's device tensors: the resident ones, or the windows'."""
+        if self._window is None:
+            return self.device_arrays()["grids"]
+        return self._window_static()["grids"]
+
+    def _window_farrays(self, window) -> dict:
+        """The farrays of a staged window: its tensors over the resident
+        (time-invariant) field and grid tensors and the cell tables."""
+        static = self._window_static()
         farrays = {"fields": dict(static["fields"]), "grids": [dict(g) for g in static["grids"]]}
         if "celltables" in static:
             farrays["celltables"] = static["celltables"]
@@ -628,9 +618,8 @@ class FieldSet:
         ``interp_method`` (and the tables it needs) is seen."""
         object.__setattr__(self, "_device_cache", None)
         object.__setattr__(self, "_field_tensors", {})
-        object.__setattr__(self, "_grid_tensors", {})
-        object.__setattr__(self, "_window_cache", {})
-        object.__setattr__(self, "_window_static", None)
+        if self._window is not None:
+            self._window.current = self._window.static = None
 
     def _field_tensor(self, name: str) -> torch.Tensor:
         """The whole of field ``name`` on the device; crosses once."""
@@ -645,19 +634,6 @@ class FieldSet:
                 )
             fields[name] = _device_copy(data, self.device)
         return fields[name]
-
-    def _grid_arrays(self) -> list:
-        """Every grid's coordinate and search tensors on the device, cached.
-
-        The UGRID face table rides in them only while the ``uxcol`` tier is
-        on, so the cache is keyed on that mode.
-        """
-        from parcels_tpu_torch.ops import uxcol
-
-        key = uxcol._mode()
-        if key not in self._grid_tensors:
-            self._grid_tensors[key] = [grid.device_arrays(self.device) for grid in self._gridset]
-        return self._grid_tensors[key]
 
     def device_arrays(self) -> dict:
         """All field data + grid coordinates on the fieldset's device; cached.
@@ -675,7 +651,7 @@ class FieldSet:
         farrays = {
             "fields": {name: self._field_tensor(name) for name, f in self._fields.items()
                        if isinstance(f, Field)},
-            "grids": self._grid_arrays(),
+            "grids": [grid.device_arrays(self.device) for grid in self._gridset],
         }
         attach_derived_tables(self, farrays)
         object.__setattr__(self, "_device_cache", farrays)

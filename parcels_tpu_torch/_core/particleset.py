@@ -321,6 +321,7 @@ class ParticleSet:
             self.populate_indices()
         windowed = self.fieldset._time_window is not None
         farrays = None if windowed else self.fieldset.device_arrays()
+        window_key = None
         dev = dict(self._data)
 
         if output_file is not None:
@@ -377,14 +378,16 @@ class ParticleSet:
                     next_time = f(next_time, time + sign_dt * cur_chunk * abs(dt))
                 if windowed:
                     next_time = f(next_time, self.fieldset.max_window_endtime(time, sign_dt))
-                    prev_farrays = farrays
-                    farrays = self.fieldset.windowed_arrays(time, next_time)
-                    if farrays is not prev_farrays:
+                    key = self.fieldset._window_offsets(time, next_time)
+                    if key != window_key:
                         # a new window: the persistent caches hold face values
                         # at the previous window's time indices (the JAX package
                         # invalidates at every windowed chunk; the caches are
                         # exact, so a hit inside one window equals a repair)
                         dev = stagecache.invalidate_soa_cache(dev)
+                        # drop the old window before the new one lands: the
+                        # chunk reads one window while its successor is staged
+                        window_key, farrays = key, None
                         if pending is not None:
                             # rollover drains the pipeline, so at most two
                             # windows' slabs are live at once
@@ -392,6 +395,7 @@ class ParticleSet:
                             pending = None
                             if stop0:
                                 break
+                    farrays = self.fieldset.windowed_arrays(time, next_time)
                 if windowed and sign_dt * (next_time - end_time) < 0:
                     # stage the next window while this chunk runs. The chunk's
                     # eager steps occupy this thread until run_chunk returns,

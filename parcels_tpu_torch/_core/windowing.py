@@ -1,6 +1,8 @@
 """Staging of time-window slabs: reused pinned buffers and a copy stream.
 
-Used by ``FieldSet.prefetch_window``/``windowed_arrays``. A window is every
+``TimeWindow`` is a fieldset's rolling window (``FieldSet.set_time_window``):
+the stager, the prefetch thread and the windows it is staging, the window
+in use and the counts ``window_stats`` reports. A window is every
 time-varying field's ``L`` levels plus the grids' ``L`` time values. The
 host reads them (from a lazy store, or a resident numpy field) into one
 staging buffer, laid out as byte ranges, and the buffer crosses to the
@@ -24,11 +26,12 @@ fresh host block read in place (no staging buffer, nothing to copy).
 from __future__ import annotations
 
 import threading
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
-__all__ = ["Stager", "Window"]
+__all__ = ["Stager", "TimeWindow", "Window"]
 
 _ALIGN = 256
 
@@ -119,3 +122,56 @@ class Stager:
             tdtype = torch.from_numpy(np.empty(0, dtype)).dtype
             out[key] = base[off:off + nbytes].view(tdtype).view(shape)
         return out
+
+
+class TimeWindow:
+    """The rolling time window of one fieldset, ``nlevels`` levels long.
+
+    Holds one window in use (``take``) and the windows the prefetch thread
+    is staging (``prefetch``); a window is built by the fieldset's
+    ``build(offsets)``, which calls ``stage``. Taking a new window drops the
+    one in use before the new one lands, so the execute loop holds at most
+    two windows: the one its chunk reads and the successor on its way.
+    """
+
+    def __init__(self, device: torch.device, nlevels: int):
+        self.nlevels = nlevels
+        self.stats = {"loads": 0, "bytes_read": 0}
+        self.futures = {}  # offsets -> Future of a staged Window
+        self.current = None  # (offsets, farrays) of the window in use
+        self.static = None  # (uxcol mode, the resident tensors and tables)
+        self._stager = Stager(device)
+        self._lock = threading.Lock()  # stats, counted on the prefetch thread
+        self._pool = None
+
+    def stage(self, parts: list, loads: int, nbytes: int) -> Window:
+        """``Stager.stage(parts)``, counting ``loads`` fields of ``nbytes``."""
+        window = self._stager.stage(parts)
+        with self._lock:
+            self.stats["loads"] += loads
+            self.stats["bytes_read"] += nbytes
+        return window
+
+    def prefetch(self, key: tuple, build) -> None:
+        """Run ``build(key)`` on the prefetch thread, unless window ``key`` is
+        in use or on its way."""
+        if (self.current is not None and self.current[0] == key) or key in self.futures:
+            return
+        # bound mispredicted windows: drop finished futures nobody consumed
+        if len(self.futures) >= 2:
+            for k in [k for k, f in self.futures.items() if f.done()]:
+                self.futures.pop(k)
+        if self._pool is None:
+            self._pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="parcels-window")
+        self.futures[key] = self._pool.submit(build, key)
+
+    def take(self, key: tuple, build, publish) -> dict:
+        """The farrays of window ``key``, made the one in use: its prefetched
+        window (an exception on the thread is raised here), else
+        ``build(key)`` now; ``publish(window)`` makes its farrays."""
+        if self.current is None or self.current[0] != key:
+            self.current = None
+            fut = self.futures.pop(key, None)
+            window = fut.result() if fut is not None else build(key)
+            self.current = (key, publish(window))
+        return self.current[1]

@@ -9,7 +9,6 @@ same values; the classic format (scipy) reads and writes with h5py hidden,
 and an HDF5 file then raises an ``ImportError`` that names h5py.
 """
 
-import pathlib
 import sys
 
 import numpy as np
@@ -104,17 +103,30 @@ def test_non_netcdf_file_rejected(tmp_path):
         open_netcdf_dataset(str(p))
 
 
-def test_reference_fixture_reads():
-    """The reference repo's own NetCDF test fixtures open through this path
-    (a checkout of the reference beside this repository)."""
-    fixture = (pathlib.Path(__file__).resolve().parents[2] / "reference" / "tests" / "test_data"
-               / "test_interpolation_data_random_A.nc")
-    if not fixture.exists():
-        pytest.skip("reference fixture not present")
-    ds = open_netcdf_dataset(fixture)
+def test_interpolation_fixture_reads(tmp_path):
+    """A fixture laid out as the reference's interpolation test data (random
+    U/V/W over time, depth, lat and lon; written here with scipy) opens
+    through this path to the values written, as through parcels_tpu.io."""
+    from scipy.io import netcdf_file
+
+    rng = np.random.default_rng(0)
+    shape = (2, 3, 4, 5)
+    path = str(tmp_path / "interpolation_data_random.nc")
+    f = netcdf_file(path, "w")
+    for dim, n in zip(("time", "depth", "lat", "lon"), shape):
+        f.createDimension(dim, n)
+        f.createVariable(dim, "f8", (dim,))[:] = np.arange(n, dtype=np.float64)
+    want = {}
+    for name in ("U", "V", "W"):
+        want[name] = rng.standard_normal(shape).astype(np.float32)
+        f.createVariable(name, "f4", ("time", "depth", "lat", "lon"))[:] = want[name]
+    f.close()
+
+    ds = open_netcdf_dataset(path)
     assert {"U", "V", "W"} <= (set(ds.data_vars) | set(ds.coords))
-    u = np.asarray(ds["U"])
-    assert u.ndim >= 3 and np.isfinite(u).any()
+    for name, values in want.items():
+        np.testing.assert_array_equal(np.asarray(ds[name]), values)
+    _assert_same_values(ds, jio.open_netcdf_dataset(path))
 
 
 # -- the two packages' files, read by each other ---------------------------------

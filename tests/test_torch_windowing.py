@@ -95,13 +95,13 @@ def test_prefetch_window_stages_next_and_is_consumed():
     fs.set_time_window(8)
     fs.windowed_arrays(0.0, 300.0)
     fs.prefetch_window(8 * 60.0)  # next window anchor
-    futs = fs._window_futures
+    futs = fs._window.futures
     assert len(futs) == 1
     next(iter(futs.values())).result(timeout=60)  # wait for the background build
     loads_before = fs.window_stats["loads"]
     a1 = fs.windowed_arrays(8 * 60.0, 10 * 60.0)
     assert fs.window_stats["loads"] == loads_before  # consumed, not re-built
-    assert not fs._window_futures
+    assert not fs._window.futures
     # staged window content identical to a fresh synchronous load
     fs2 = _eddy()
     fs2.set_time_window(8)
@@ -115,6 +115,38 @@ def test_prefetch_mispredict_harmless():
     fs.prefetch_window(100 * 60.0)  # way off
     out = fs.windowed_arrays(0.0, 300.0)  # sync load still correct
     assert out["fields"]["U"].shape[0] == 8
+
+
+def test_execute_holds_at_most_two_windows(monkeypatch):
+    """While a chunk runs, the execute loop holds the window it reads and the
+    successor being staged, and no other: the window before them is gone."""
+    import gc
+    import weakref
+
+    from parcels_tpu_torch._core import windowing
+
+    fs = _eddy()
+    fs.set_time_window(8)
+    windows, live = [], []
+    stage, chunk = windowing.Stager.stage, tparticleset.run_chunk
+
+    def recorded(self, parts):
+        window = stage(self, parts)
+        windows.append([weakref.ref(t) for t in window.tensors.values()])
+        return window
+
+    def counted_chunk(*a, **kw):
+        for fut in list(fs._window.futures.values()):
+            fut.result(timeout=60)  # the successor has landed
+        gc.collect()
+        live.append(sum(any(r() is not None for r in refs) for refs in windows))
+        return chunk(*a, **kw)
+
+    monkeypatch.setattr(windowing.Stager, "stage", recorded)
+    monkeypatch.setattr(tparticleset, "run_chunk", counted_chunk)
+    _run(fs, runtime_h=1)
+    assert len(windows) >= 4
+    assert max(live) == 2
 
 
 def test_to_windowed_arrays_reference_alias():
