@@ -113,7 +113,40 @@ counter is set to 0 just before a path runs and read just after):
     bit for bit are printed); ``from_particlefile`` on the output returns
     the 6 h snapshot's ids and positions. Then (j2) streamed at 64K
     particles for 2 h on the card and on the CPU: states equal, positions
-    within rtol 1e-5, as phase 5.
+    within rtol 1e-5, as phase 5;
+19. (k) a Copernicus Marine global release, shaped as the product
+    GLOBAL_ANALYSISFORECAST_PHY_001_024 (``cmems_mod_glo_phy_anfc_0.083deg_PT1H-m``,
+    hourly-mean surface currents at 1/12 degree): native ``uo``/``vo`` with
+    CF standard names on (24, 1, 2041, 4320) f32, random velocities in +-1
+    m/s, NaN over a synthetic land mask of about 30 % of the cells, made
+    from a seed, through ``convert.copernicusmarine_to_sgrid`` and
+    ``FieldSet.from_sgrid_conventions`` onto the card (ingest time printed;
+    ``memory_report``'s field and grid bytes within 1 % of the allocator's
+    rise). 2M particles in a North Atlantic box (80-40 W, 25-45 N),
+    AdvectionRK4 at dt 15 min for 12 h with hourly Parquet output and
+    ``z`` write-disabled (its column must be absent), ``pset +=`` 1M more,
+    ``remove_indices`` of a seeded 10 %, 11 h more (to the day's last
+    level); K2 must launch in both halves; ``len``, ``pset[0]`` and
+    ``describe`` on the 2.7M set timed, each column copied to the host once;
+    the merged run equals a fresh set built from the same lanes at hour
+    12 (states equal, positions within rtol 1e-6, bit for bit or not
+    printed). Each half also holds K2 against its plain version, bit for
+    bit, on the field window and engine-sorted lanes of one of its stages.
+    Before it, ``profiling.trace`` of one chunk of path (a): the trace must
+    name K1's kernel and the ``annotate`` region;
+20. card against CPU at 64K particles for 6 RK4 steps on the three new
+    converters' outputs: the ``circulation_models`` mimics at realistic
+    widths with seeded random velocities, ``mitgcm_style``'s names at 500
+    x 500 x 15 staggered as MITgcm writes a C-grid (U on (Zl, YC, XG), V
+    on (Zl, YG, XC), so ``CGrid_Velocity``; past K1's fold, so the binned
+    sampler is forced on both devices: rtol 1e-5 and equal states, as phase
+    5) and ``delft3d_style`` at ``n=400`` (2-D XZETA/YZETA coordinates, so
+    the curvilinear search runs; phase 10's rule scaled to its 100 m cells:
+    at most 0.1 % of lanes beyond 0.05 m, equal states elsewhere), and
+    (k)'s field through (k)'s add-and-remove sequence (3 steps, += a third,
+    10 % removed, 3 steps; binned sampler forced on both devices): states
+    equal, positions within rtol 1e-5. Each must launch K2 on the card, and
+    K2 is held bit for bit against its plain version on one of its stages.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Field data and
@@ -124,6 +157,7 @@ result when CUDA is absent or the port cannot be imported.
 from __future__ import annotations
 
 import gc
+import io
 import json
 import os
 import shutil
@@ -1773,6 +1807,463 @@ def stream_card_cpu(tp, path, kernels):
         f"states equal, max |position difference| {dmax:.3g} m")
 
 
+#: (k): the Copernicus Marine product GLOBAL_ANALYSISFORECAST_PHY_001_024, dataset
+#: cmems_mod_glo_phy_anfc_0.083deg_PT1H-m (hourly-mean surface currents at 1/12
+#: degree): one day of (time, depth, latitude, longitude)
+K_SHAPE = (24, 1, 2041, 4320)
+#: the North Atlantic release box (lon, lat), the two releases, dt, and the hours
+#: before and after the second release (the day's 24 hourly levels span 23 h)
+K_BOX = ((-80.0, -40.0), (25.0, 45.0))
+K_FIRST, K_SECOND, K_DT, K_HOURS, K_HOURS_AFTER = 2_000_000, 1_000_000, 900, 12, 11
+#: the write-disabled particle variable (every particle sits at the surface)
+K_UNWRITTEN = "z"
+
+
+def copernicus_global_inputs(seed=9, shape=K_SHAPE):
+    """``(fields, coords)`` shaped as the product: native ``uo``/``vo`` with
+    their CF standard names on (time, depth, latitude, longitude), random
+    velocities in +-1 m/s and NaN over a synthetic land mask of about 30 %
+    of the cells (64-cell blocks of a coarse random field under its 30th
+    percentile), so that the ingest's fill runs."""
+    from parcels_tpu_torch import xrlite as xr
+
+    T, Z, Y, X = shape
+    rng = np.random.default_rng(seed)
+    coarse = rng.random((Y // 64 + 2, X // 64 + 2))
+    land = np.kron(coarse < np.quantile(coarse, 0.3), np.ones((64, 64), bool))[:Y, :X]
+
+    def velocity():
+        a = rng.random(shape, dtype=np.float32)
+        a *= np.float32(2.0)
+        a -= np.float32(1.0)
+        a[:, :, land] = np.nan
+        return a
+
+    dims = ("time", "depth", "latitude", "longitude")
+    fields = {
+        name: xr.DataArray(velocity(), dims, {"units": "m s-1", "standard_name": std}, name=name)
+        for name, std in (("uo", "eastward_sea_water_velocity"),
+                          ("vo", "northward_sea_water_velocity"))
+    }
+    t0 = np.datetime64("2024-01-01T00:30")
+    coords = xr.Dataset(coords={
+        "time": (("time",), t0 + np.arange(T) * np.timedelta64(1, "h")),
+        "depth": (("depth",), np.array([0.494025])[:Z], {"units": "m", "positive": "down"}),
+        "latitude": (("latitude",), np.linspace(-80.0, 90.0, Y), {"units": "degrees_north"}),
+        "longitude": (("longitude",), -180.0 + np.arange(X) * (360.0 / X),
+                      {"units": "degrees_east"}),
+    })
+    return fields, coords, float(land.mean())
+
+
+def box_release(n, rng, t):
+    (x0, x1), (y0, y1) = K_BOX
+    return dict(x=rng.uniform(x0, x1, n), y=rng.uniform(y0, y1, n), t=np.full(n, float(t)))
+
+
+def host_copies(tp_ps):
+    """Count the particle set's device-to-host column copies (``_host``)."""
+    calls = []
+    inner = tp_ps._host
+
+    def counted(v):
+        calls.append(1)
+        return inner(v)
+
+    tp_ps._host = counted
+    return calls, lambda: setattr(tp_ps, "_host", inner)
+
+
+def trace_chunk(torch, tp, fs_a):
+    """``profiling.trace`` of one chunk of path (a) (2 RK4 steps at 1M
+    particles, inside an ``annotate`` region): the trace names K1's kernel
+    and the region."""
+    logdir = os.path.join(os.path.dirname(stream_dir()), "trace")
+    seeds = stream_seeds(fs_a, 1 << 20, seed=4)
+    pset = tp.ParticleSet(fs_a, **seeds)
+    zero_counts()
+    try:
+        with tp.profiling.trace(logdir) as prof:
+            with tp.profiling.annotate("path_a_chunk"):
+                pset.execute(tp.AdvectionRK4, dt=np.timedelta64(60, "s"),
+                             runtime=np.timedelta64(120, "s"))
+        launches = counts()["fold_sample"]
+        with open(os.path.join(logdir, "trace.json")) as fh:
+            events = json.load(fh)["traceEvents"]
+        size = os.path.getsize(os.path.join(logdir, "trace.json"))
+    finally:
+        shutil.rmtree(logdir, ignore_errors=True)
+    names = [str(e.get("name", "")) for e in events]
+    k1 = [e for e in events if "fold_sample_kernel" in str(e.get("name", ""))]
+    if pset.last_run_stats["chunks"] != 1:
+        raise AssertionError(f"trace: {pset.last_run_stats['chunks']} chunks, not one")
+    if "path_a_chunk" not in names or not k1:
+        raise AssertionError(f"trace: region in it {'path_a_chunk' in names}, K1 kernel events "
+                             f"{len(k1)}")
+    k1_us = sum(float(e.get("dur", 0.0)) for e in k1)
+    cuda_ops = sum(1 for e in events if e.get("cat") == "kernel")
+    log(f"[trace a] one chunk (2 RK4 steps, 1M particles): trace.json {size} B, {len(events)} "
+        f"events, {cuda_ops} device kernels, {len(k1)} of them K1 ({k1_us:.1f} us), the "
+        f"'path_a_chunk' region present; K1 launches counted {launches}; top by device time: "
+        + "; ".join(f"{e.key} {e.device_time_total:.0f} us"
+                    for e in sorted(prof.key_averages(), key=lambda e: -e.device_time_total)[:4]))
+    return launches
+
+
+def k_ingest(torch, tp):
+    """(k)'s dataset through ``convert.copernicusmarine_to_sgrid`` and
+    ``FieldSet.from_sgrid_conventions`` onto the card; ``memory_report``'s
+    field and grid bytes held within 1 % of the allocator's rise."""
+    from parcels_tpu_torch import convert
+
+    t0 = time.perf_counter()
+    fields, coords, land = copernicus_global_inputs()
+    gen_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    ds = convert.copernicusmarine_to_sgrid(fields=fields, coords=coords)
+    fs = tp.FieldSet.from_sgrid_conventions(ds)
+    fs.device_arrays()
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    rise = torch.cuda.memory_allocated() - base
+    if not (fs.gridset[0].spec.spherical and fs.U.data.shape == K_SHAPE):
+        raise AssertionError(f"(k): ingest gave {fs.U.data.shape}, spherical "
+                             f"{fs.gridset[0].spec.spherical}")
+    if np.isnan(fs.U.data).any():
+        raise AssertionError("(k): the land NaNs were not filled")
+    rep = fs.memory_report(particles=K_FIRST)
+    fg = sum(rep["fields"].values()) + sum(sum(e.values()) for e in rep["grids"])
+    total = torch.cuda.get_device_properties(0).total_memory
+    if abs(fg - rise) > 0.01 * rise or rep["device_bytes"] != total:
+        raise AssertionError(f"(k): memory_report fields+grids {fg} B against a rise of {rise} B")
+    log(f"[k ingest] {K_SHAPE} uo/vo (land {land:.3f} of cells) made in {gen_s:.2f} s; converter "
+        f"+ FieldSet + device copy {ingest_s:.2f} s; memory_report fields+grids {fg} B, "
+        f"allocator rise {rise} B ({(fg - rise) / rise:+.5%}), total with {K_FIRST} particles "
+        f"{rep['total']} B (SoA {rep['soa']} B), device_bytes {rep['device_bytes']} (card total "
+        f"{total}), fits {rep['fits']}")
+    return ds, fs, dict(gen_s=gen_s, ingest_s=ingest_s, report_total=rep["total"],
+                        fields_grids=fg, rise=rise)
+
+
+def binned_calls():
+    """Record the binned sampler's calls: each (field shape, lane count)
+    with its number of calls, and the (data, gpos) of the last call with
+    the most lanes, for ``k2_on_path``. Returns (seen, restore)."""
+    from parcels_tpu_torch.ops import binned_sample as bs
+
+    seen = {"calls": {}, "last": None}
+    inner = bs.binned_linear_sample
+
+    def recorded(data, gpos):
+        key = (tuple(data.shape), int(gpos["X"]["index"].shape[0]))
+        seen["calls"][key] = seen["calls"].get(key, 0) + 1
+        if seen["last"] is None or key[1] >= seen["last"][1]["X"]["index"].shape[0]:
+            seen["last"] = (data, gpos)
+        return inner(data, gpos)
+
+    bs.binned_linear_sample = recorded
+    return seen, lambda: setattr(bs, "binned_linear_sample", inner)
+
+
+def k2_on_path(torch, what, seen):
+    """K2 against its plain version, bit for bit, at the shapes a main path
+    gave it: the field window and engine-sorted lanes of the last stage with
+    the most lanes, planned anew with ``_build_plan``. The plan's overflow
+    must stay in the fix-up's capacity, so that K2's values are the ones
+    kept. Returns a summary for the log."""
+    from parcels_tpu_torch.ops import binned_sample as bs
+
+    if seen["last"] is None:
+        raise AssertionError(f"{what}: the binned sampler was never called")
+    data, gpos = seen["last"]
+    shape4, n = tuple(data.shape), int(gpos["X"]["index"].shape[0])
+    plan = bs._build_plan(shape4, gpos)
+    out = bs.slab_sample(data, plan)
+    torch.cuda.synchronize()
+    ref = bs.slab_sample_plain(data, plan)
+    err = float((out - ref).abs().max())
+    if not same_bits(torch, out, ref):
+        raise AssertionError(f"{what}: K2 is not bit for bit equal to its plain version at "
+                             f"{shape4}, {n} lanes: max abs err {err}")
+    k_big = min(n, max(4096, n // bs._K_BIG_DIV))
+    if plan["count"] > k_big:
+        raise AssertionError(f"{what}: {plan['count']} of {n} lanes overflow K2's slabs (fix-up "
+                             f"capacity {k_big}), so the whole batch fell back to the gather")
+    ms = cuda_ms(torch, lambda: bs.slab_sample(data, plan), reps=10)
+    return (f"K2 at {shape4} on {n} engine-sorted lanes (geometry {bs.slab_geometry(shape4, n)}, "
+            f"{plan['npad'] // bs.CHUNK} chunks, overflow share {plan['count'] / n:.5f}): bit for "
+            f"bit equal to its plain version (max abs err {err:.3g}), {ms:.4f} ms; sampler calls "
+            f"by (shape, lanes): {seen['calls']}")
+
+
+def k_run(tp, pset, hours, output_file=None, capture=False):
+    zero_counts()
+    seen, restore = binned_calls() if capture else (None, lambda: None)
+    try:
+        pset.execute(tp.AdvectionRK4, dt=np.timedelta64(K_DT, "s"),
+                     runtime=np.timedelta64(hours * 3600, "s"), output_file=output_file)
+    finally:
+        restore()
+    launches = counts()
+    if not (np.isfinite(pset.x).all() and np.isfinite(pset.y).all()):
+        raise AssertionError("(k): non-finite positions")
+    if int((pset.state >= tp.StatusCode.Error).sum()):
+        raise AssertionError("(k): particles ended in an error state")
+    return launches, pset.last_run_stats, seen
+
+
+def by_id(pset):
+    order = np.argsort(pset.particle_id)
+    return {v: getattr(pset, v)[order] for v in ("particle_id", "x", "y", "state")}
+
+
+def k_phase(torch, tp):
+    """Phase 19: (k) a Copernicus Marine global release: 2M particles in a
+    North Atlantic box, RK4 at dt 15 min for 12 h with hourly Parquet output
+    (one variable write-disabled), ``pset +=`` 1M more, ``remove_indices``
+    of a seeded 10 %, 11 h more (to the day's last level); K2 in both
+    halves; equal to a fresh set built from the same lanes at hour 12."""
+    from parcels_tpu_torch._core import particleset as ps_mod
+
+    ds, fs, ing = k_ingest(torch, tp)
+    rng = np.random.default_rng(12)
+    out = os.path.join(os.path.dirname(stream_dir()), "k_first.parquet")
+    pset = tp.ParticleSet(fs, **box_release(K_FIRST, rng, 0.0))
+    pset.set_variable_write_status(K_UNWRITTEN, False)
+    pf = tp.ParticleFile(out, outputdt=np.timedelta64(1, "h"), mode="w")
+    try:
+        l1, s1, seen1 = k_run(tp, pset, K_HOURS, output_file=pf, capture=True)
+        pf.close()
+        import pyarrow.parquet as pq
+
+        table = pq.read_table(out)
+        cols, rows = table.column_names, table.num_rows
+    finally:
+        if os.path.exists(out):
+            os.remove(out)
+    if K_UNWRITTEN in cols or "x" not in cols or rows != K_FIRST * (K_HOURS + 1):
+        raise AssertionError(f"(k) output: columns {cols}, {rows} rows")
+    log(f"[k K2 first half] {k2_on_path(torch, '(k) first half', seen1)}")
+    del seen1
+    t_mid = K_HOURS * 3600.0
+    pset += tp.ParticleSet(fs, **box_release(K_SECOND, rng, t_mid),
+                           particle_ids=np.arange(K_FIRST, K_FIRST + K_SECOND))
+    n_merged = len(pset)
+    pset.remove_indices(np.random.default_rng(13).choice(n_merged, n_merged // 10, replace=False))
+    n_live = len(pset)
+    if n_merged != K_FIRST + K_SECOND or n_live != n_merged - n_merged // 10:
+        raise AssertionError(f"(k): {n_merged} merged, {n_live} live")
+
+    calls, restore = host_copies(ps_mod)
+    try:
+        ncols = sum(1 for k in pset._data if k != "_rng" and not k.startswith(("_sc_", "_uxc_")))
+        t0 = time.perf_counter()
+        n = len(pset)
+        len_s, len_copies = time.perf_counter() - t0, len(calls)
+        t0 = time.perf_counter()
+        rec = pset[0]
+        get_s, get_copies = time.perf_counter() - t0, len(calls) - len_copies
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        pset.describe(buf)
+        desc_s, desc_copies = time.perf_counter() - t0, len(calls) - len_copies - get_copies
+    finally:
+        restore()
+    if n != n_live or get_copies != ncols or desc_copies != ncols or len_copies:
+        raise AssertionError(f"(k): host copies len {len_copies}, pset[0] {get_copies}, describe "
+                             f"{desc_copies} for {ncols} columns")
+    log(f"[k api] {n_live} live of {n_merged} merged lanes: len {len_s * 1e3:.2f} ms (no column "
+        f"copy), pset[0] {get_s * 1e3:.2f} ms ({get_copies} column copies), describe "
+        f"{desc_s * 1e3:.2f} ms ({desc_copies} copies, {len(buf.getvalue())} chars); pset[0] = "
+        f"{rec!r}; summary {buf.getvalue().splitlines()[2].strip()}")
+
+    fresh = tp.ParticleSet(fs, x=pset.x, y=pset.y, z=pset.z, t=pset.t,
+                           particle_ids=pset.particle_id)
+    l2, s2, seen2 = k_run(tp, pset, K_HOURS_AFTER, capture=True)
+    log(f"[k K2 second half] {k2_on_path(torch, '(k) second half', seen2)}")
+    del seen2
+    l3, s3, _ = k_run(tp, fresh, K_HOURS_AFTER)
+    if l1["slab_sample"] == 0 or l2["slab_sample"] == 0:
+        raise AssertionError(f"(k): K2 launches {l1['slab_sample']} and {l2['slab_sample']}")
+    a, b = by_id(pset), by_id(fresh)
+    np.testing.assert_array_equal(a["particle_id"], b["particle_id"])
+    np.testing.assert_array_equal(a["state"], b["state"], err_msg="(k) merged vs fresh: states")
+    for v in ("x", "y"):
+        np.testing.assert_allclose(a[v], b[v], rtol=1e-6, err_msg=f"(k) merged vs fresh: {v}")
+    dmax = max(float(np.abs(a[v] - b[v]).max()) for v in ("x", "y"))
+    bits = all(np.array_equal(a[v], b[v]) for v in ("x", "y"))
+    steps, steps2 = K_HOURS * 3600 // K_DT, K_HOURS_AFTER * 3600 // K_DT
+    log(f"[e2e k] first half: {K_FIRST} particles, {steps} RK4 steps at dt {K_DT} s, hourly "
+        f"output ({rows} rows, '{K_UNWRITTEN}' not written): particle_steps_per_s "
+        f"{s1['particle_steps_per_s']} wall_s {s1['wall_s']}, launches {l1} "
+        f"({l1['slab_sample'] / steps:.2f} K2 a step); second half: {n_live} particles "
+        f"after += {K_SECOND} and removing {n_merged // 10}, {steps2} steps: particle_steps_per_s "
+        f"{s2['particle_steps_per_s']} wall_s {s2['wall_s']}, launches {l2} "
+        f"({l2['slab_sample'] / steps2:.2f} K2 a step); a fresh set from the same lanes: "
+        f"particle_steps_per_s {s3['particle_steps_per_s']}, launches {l3}; merged equals "
+        f"fresh: states equal, max |position difference| {dmax:.3g} deg (bit for bit: {bits})")
+    del pset, fresh
+    torch.cuda.empty_cache()
+    return ds, fs, dict(ing, first=l1, second=l2, fresh=l3, rate1=s1["particle_steps_per_s"],
+                        rate2=s2["particle_steps_per_s"], bits=bits)
+
+
+def k_add_remove(tp, fs, n, steps=3, options=None):
+    """(k)'s sequence at ``n`` particles on ``fs``'s device: two thirds
+    released, ``steps`` steps, the rest added, 10 % removed, ``steps``
+    more; positions by particle id."""
+    rng = np.random.default_rng(14)
+    n1 = 2 * n // 3
+    pset = tp.ParticleSet(fs, **box_release(n1, rng, 0.0))
+    pset.execute(tp.AdvectionRK4, dt=np.timedelta64(K_DT, "s"),
+                 runtime=np.timedelta64(steps * K_DT, "s"), options=options)
+    pset += tp.ParticleSet(fs, **box_release(n - n1, rng, steps * K_DT),
+                           particle_ids=np.arange(n1, n))
+    pset.remove_indices(np.random.default_rng(15).choice(n, n // 10, replace=False))
+    pset.execute(tp.AdvectionRK4, dt=np.timedelta64(K_DT, "s"),
+                 runtime=np.timedelta64(steps * K_DT, "s"), options=options)
+    return pset
+
+
+def mitgcm_staggered(nx, ny, nz, extent):
+    """``circulation_models.mitgcm_style``'s names at a C-grid's staggering,
+    as MITgcm writes it: U on the west faces (Zl, YC, XG), V on the south
+    faces (Zl, YG, XC), with the centres XC/YC half a cell past the corners
+    XG/YG."""
+    from parcels_tpu_torch import xrlite as xr
+    from parcels_tpu_torch.datasets import circulation_models as cm
+
+    fields, coords = cm.mitgcm_style(nx=nx, ny=ny, nz=nz, extent=extent)
+    c = {k: coords[k] for k in coords.coords}
+    for centre, corner in (("XC", "XG"), ("YC", "YG")):
+        g = np.asarray(coords[corner].values)
+        c[centre] = ((centre,), g + 0.5 * (g[1] - g[0]), {"units": "m"})
+    dims = {"U": ("time", "Zl", "YC", "XG"), "V": ("time", "Zl", "YG", "XC")}
+    return ({k: xr.DataArray(fields[k].values, d, dict(fields[k].attrs), name=k)
+             for k, d in dims.items()}, xr.Dataset(coords=c))
+
+
+def mimic_fieldset(tp, which, device, seed):
+    """A ``circulation_models`` mimic at a realistic width through its
+    converter, with seeded random velocities (+-0.3 m/s) in place of the
+    mimic's constant ones."""
+    import warnings
+
+    from parcels_tpu_torch import convert
+    from parcels_tpu_torch.datasets import circulation_models as cm
+
+    if which == "mitgcm":
+        fields, coords = mitgcm_staggered(nx=500, ny=500, nz=15, extent=5e5)
+        conv = convert.mitgcm_to_sgrid
+    else:
+        fields, coords = cm.delft3d_style(n=400, extent=4e4)
+        conv = convert.delft3d_to_sgrid
+    rng = np.random.default_rng(seed)
+    for name in ("U", "V"):
+        fields[name].values[...] = rng.uniform(-0.3, 0.3, fields[name].values.shape)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # delft3d_to_sgrid is experimental
+        ds = conv(fields=fields, coords=coords)
+    return tp.FieldSet.from_sgrid_conventions(ds, mesh="flat", device=device)
+
+
+def mimic_phase(torch, tp, which, dt_s, options=None, frac=0.8):
+    """Card against CPU at 64K particles, 6 RK4 steps, on a mimic (the same
+    ``options`` on both devices), released over the central ``frac`` of
+    each side; returns the card's launches."""
+    runs, launches = {}, None
+    for d in ("cuda", "cpu"):
+        fs = mimic_fieldset(tp, which, d, seed=16)
+        rng = np.random.default_rng(17)
+        g = fs.gridset[0]
+        lon, lat = np.asarray(g.lon), np.asarray(g.lat)
+        span = lambda a: (a.min() + (1 - frac) / 2 * np.ptp(a),  # noqa: E731
+                          a.max() - (1 - frac) / 2 * np.ptp(a))
+        seeds = dict(x=rng.uniform(*span(lon), CMP_LANES), y=rng.uniform(*span(lat), CMP_LANES),
+                     z=rng.uniform(*((5.0, 95.0) if which == "mitgcm" else (-0.9, -0.1)),
+                                   CMP_LANES), t=np.zeros(CMP_LANES))
+        runs[d] = tp.ParticleSet(fs, **seeds)
+        zero_counts()
+        seen, restore = binned_calls() if d == "cuda" else (None, lambda: None)
+        try:
+            runs[d].execute(tp.AdvectionRK4, dt=np.timedelta64(dt_s, "s"),
+                            runtime=np.timedelta64(6 * dt_s, "s"), options=options)
+        finally:
+            restore()
+        if d == "cuda":
+            launches = counts()
+            curvilinear, interp = g.spec.curvilinear, type(fs.UV.interp_method).__name__
+            k2 = k2_on_path(torch, f"card vs cpu {which}", seen)
+            del seen
+    if launches["slab_sample"] == 0:
+        raise AssertionError(f"card vs cpu {which}: K2 was not launched on the card")
+    a, b = runs["cuda"], runs["cpu"]
+    if which == "mitgcm":
+        dmax = assert_same(f"card vs cpu {which}", a, b, rtol=1e-5)
+        over = 0.0
+    else:
+        # phase 10's rule on the 100 m cells: 1/2000 of a cell, as phase 10's
+        # 1e-4 deg is of its 0.18 deg cell; at most 0.1 % of lanes beyond it
+        d = np.maximum(np.abs(a.x - b.x), np.abs(a.y - b.y))
+        near = d <= 0.05
+        over, dmax = float((~near).mean()), float(d.max())
+        if over > 1e-3 or not np.array_equal(a.state[near], b.state[near]):
+            raise AssertionError(f"card vs cpu {which}: {over:.4%} of lanes beyond 0.05 m")
+    log(f"[card vs cpu {which}] {CMP_LANES} particles, 6 RK4 steps at dt {dt_s} s on "
+        f"{a.fieldset.U.data.shape} ({'curvilinear' if curvilinear else 'rectilinear'}, "
+        f"{interp}, sampler {options.sampler if options else 'auto'}): max |position "
+        f"difference| {dmax:.3g} m, share beyond tolerance {over:.5f}; card launches "
+        f"{launches}; {k2}")
+    return launches
+
+
+def convert_phase(torch, tp, ds_k, fs_k):
+    """Phase 20: card against CPU on the three converters' outputs. The
+    MITgcm C-grid (2, 15, 500, 500) is past K1's fold budget, and 64K lanes
+    on it, or on (k)'s field, fall short of the bin plan's fill bar, so
+    there the binned sampler is forced on both devices (K2 on the card, its
+    plain version on the CPU); the Delft3D mesh takes K2 on its own. The
+    MITgcm release covers the central 40 % of each side: over 80 % of them,
+    64K lanes leave about 14 % of the lanes outside their chunk's slab,
+    past the fix-up's 1/8, and the sampler then gathers the whole batch."""
+    from parcels_tpu_torch.ops.interp_kernels import fits_fast_path
+
+    binned = tp.EngineOptions(sampler="binned")
+    if fits_fast_path((2, 15, 500, 500)) or fits_fast_path(K_SHAPE):
+        raise AssertionError("phase 20: a field meant for K2 fits K1's fold")
+    l_mit = mimic_phase(torch, tp, "mitgcm", 300, options=binned, frac=0.4)
+    l_delft = mimic_phase(torch, tp, "delft3d", 60)
+    fs_cpu = tp.FieldSet.from_sgrid_conventions(ds_k, device="cpu")
+    zero_counts()
+    seen, restore = binned_calls()
+    try:
+        a = k_add_remove(tp, fs_k, CMP_LANES, options=binned)
+    finally:
+        restore()
+    l_k = counts()
+    if l_k["slab_sample"] == 0:
+        raise AssertionError("(k) card vs cpu: K2 was not launched on the card")
+    k2 = k2_on_path(torch, "(k) card vs cpu", seen)
+    del seen
+    b = k_add_remove(tp, fs_cpu, CMP_LANES, options=binned)
+    if len(a) != len(b) or len(a) != CMP_LANES - CMP_LANES // 10:
+        raise AssertionError(f"(k) card vs cpu: {len(a)} and {len(b)} live particles")
+    pa, pb = by_id(a), by_id(b)
+    np.testing.assert_array_equal(pa["particle_id"], pb["particle_id"])
+    np.testing.assert_array_equal(pa["state"], pb["state"], err_msg="(k) card vs cpu: states")
+    for v in ("x", "y"):
+        np.testing.assert_allclose(pa[v], pb[v], rtol=1e-5, err_msg=f"(k) card vs cpu: {v}")
+    dmax = max(float(np.abs(pa[v] - pb[v]).max()) for v in ("x", "y"))
+    log(f"[card vs cpu k] {CMP_LANES} particles, 3 RK4 steps, += {CMP_LANES - 2 * CMP_LANES // 3}, "
+        f"10 % removed, 3 more (sampler binned on both): {len(a)} live, states equal, max "
+        f"|position difference| {dmax:.3g} deg; card launches {l_k}; {k2}")
+    return l_mit, l_delft, l_k
+
+
 def mark(t_start, done: str):
     log(f"[time] {done} done at {time.perf_counter() - t_start:.1f} s")
 
@@ -1979,17 +2470,35 @@ def main() -> int:
     j2r, j1r = stream_phase(torch, tp, ds_a)
 
     mark(t_start, "phases 17-18")
+    # 19-20: (k) a Copernicus Marine global release with a second release and a
+    # recapture (K2), the trace of one chunk of path (a) (K1), then card against
+    # CPU on the MITgcm, Delft3D and Copernicus converters' outputs
+    l_trace = trace_chunk(torch, tp, fs_a)
+    ds_k, fs_k, kr = k_phase(torch, tp)
+    l_mit, l_delft, l_kc = convert_phase(torch, tp, ds_k, fs_k)
+    del ds_k, fs_k
+    torch.cuda.empty_cache()
+
+    mark(t_start, "phases 19-20")
     kernels = [
         dict(name="fold_sample", route="cuda", source="parcels_tpu_torch/csrc/fold_sample.cu",
              replaces="parcels_tpu/ops/interp_kernels.py:77", launches=la["fold_sample"],
              launches_by_path={"e2e_a": la["fold_sample"], "cgrid_peninsula": lp["fold_sample"],
                                "config3": l12, "slip": l14,
-                               "stream_j1": j1r["launches"]["fold_sample"]},
+                               "stream_j1": j1r["launches"]["fold_sample"], "trace_a": l_trace,
+                               "mitgcm_card_vs_cpu": l_mit["fold_sample"],
+                               "delft3d_card_vs_cpu": l_delft["fold_sample"]},
              **k1),
         dict(name="slab_sample", route="cuda", source="parcels_tpu_torch/csrc/slab_sample.cu",
              replaces="parcels_tpu/ops/binned_sample.py:489", launches=lb["slab_sample"],
              launches_by_path={"e2e_b": lb["slab_sample"], "e2e_b_em": l13,
-                               "stream_j2": j2r["launches"]["slab_sample"]}, **k2),
+                               "stream_j2": j2r["launches"]["slab_sample"],
+                               "k_first_half": kr["first"]["slab_sample"],
+                               "k_second_half": kr["second"]["slab_sample"],
+                               "k_fresh": kr["fresh"]["slab_sample"],
+                               "mitgcm_card_vs_cpu": l_mit["slab_sample"],
+                               "delft3d_card_vs_cpu": l_delft["slab_sample"],
+                               "k_card_vs_cpu": l_kc["slab_sample"]}, **k2),
         dict(name="fused_rk4", route="cuda", source="parcels_tpu_torch/csrc/fused_rk4.cu",
              replaces="scripts/bench_fused_rk4.py:134", launches=k9["launches"],
              launches_by_path={"k3_path": k9["launches"]}, **k3),

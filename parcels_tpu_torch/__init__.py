@@ -1,17 +1,22 @@
 """parcels_tpu_torch — the PyTorch/CUDA port of parcels_tpu.
 
-Same public names as ``parcels_tpu`` for what the port has landed so far:
-structured rectilinear and curvilinear fieldsets on A- and C-grids (with
-the NEMO and CROCO converters ``convert.nemo_to_sgrid`` and
-``convert.croco_to_sgrid`` and the C-grid stage cache), unstructured
-triangular UGRID fieldsets (``FieldSet.from_ugrid_conventions``, with the
-FESOM2 and ICON converters, the fused face-row tier and the per-face stage
-cache), the structured and UGRID interpolators, ``ParticleSet.execute`` with the advection, advection-diffusion,
-analytical and CROCO sigma-grid kernels, Parquet trajectory output, checkpoint and restart,
-and out-of-core forcing: zarr and NetCDF stores opened lazily (``io``) and streamed to the
-card a time window at a time (``FieldSet.set_time_window``). Field sampling runs
-through hand-written CUDA kernels for Hopper (``ops/``) on the card, and
-through their plain PyTorch versions for tensors on the CPU.
+The same public names as ``parcels_tpu``: structured rectilinear and
+curvilinear fieldsets on A- and C-grids (the NEMO, MITgcm, CROCO,
+Copernicus Marine and Delft3D converters in ``convert``, the C-grid stage
+cache), unstructured triangular UGRID fieldsets
+(``FieldSet.from_ugrid_conventions``, with the FESOM2 and ICON converters,
+the fused face-row tier and the per-face stage cache), the structured and
+UGRID interpolators, ``ParticleSet.execute`` with the advection,
+advection-diffusion, analytical and CROCO sigma-grid kernels, continuous
+releases and recaptures (``pset += other``, ``remove_indices``), Parquet
+trajectory output, checkpoint and restart, out-of-core forcing (zarr and
+NetCDF stores opened lazily by ``io`` and streamed to the card a time window
+at a time by ``FieldSet.set_time_window``), ``describe``/``memory_report``,
+``profiling`` (``torch.profiler``) and the generated ``tutorial`` and remote
+datasets (no download). Field sampling runs through hand-written CUDA
+kernels for Hopper (``ops/``) on the card, and through their plain PyTorch
+versions for tensors on the CPU. Multi-card runs (``parallel``) raise
+``NotImplementedError`` until their slice lands.
 
 Quick start::
 
@@ -27,7 +32,7 @@ Quick start::
 This package never imports JAX or ``parcels_tpu``.
 """
 
-from parcels_tpu_torch import convert, io, kernels
+from parcels_tpu_torch import convert, io, kernels, profiling, tutorial
 from parcels_tpu_torch._core.basegrid import BaseGrid
 from parcels_tpu_torch._core.field import Field, VectorField
 from parcels_tpu_torch._core.fieldset import FieldSet
@@ -147,6 +152,15 @@ __all__ = [
     "kernels",
     "logger",
     "open_raw_zarr",
+    "profiling",
     "read_particlefile",
     "state_from_numpy",
+    "tutorial",
 ]
+
+# register the ``ds.sgrid`` accessor on real xarray when present (a no-op
+# without xarray); xrlite datasets carry it natively
+from parcels_tpu_torch._sgrid import register_xarray_accessor as _reg_sgrid
+
+_reg_sgrid()
+del _reg_sgrid

@@ -68,6 +68,30 @@ class Field:
     def __repr__(self):
         return f"Field(name={self.name!r}, shape={self.data.shape})"
 
+    def _repr_sections(self):
+        interp = type(self.interp_method).__name__ if self.interp_method else "-"
+        return [
+            (
+                "attributes",
+                [
+                    f"name: {self.name!r}",
+                    f"shape: {tuple(self.data.shape)}  dtype: {self.data.dtype}",
+                    f"interp_method: {interp}",
+                    f"grid: {self.grid!r}",
+                ],
+            )
+        ]
+
+    def describe(self, buf=None) -> None:
+        from parcels_tpu_torch._repr import write_sections
+
+        write_sections(f"Field {self.name!r}", self._repr_sections(), buf)
+
+    def _repr_html_(self):
+        from parcels_tpu_torch._repr import html_sections
+
+        return html_sections(f"Field {self.name!r}", self._repr_sections())
+
 
 class VectorField:
     """Host-side vector field referencing 2-3 component Fields."""
@@ -105,6 +129,25 @@ class VectorField:
 
     def __repr__(self):
         return f"VectorField(name={self.name!r}, {self.vector_type})"
+
+    def _repr_sections(self):
+        comps = [repr(c) for c in (self.U, self.V, self.W) if c is not None]
+        interp = type(self.interp_method).__name__ if self.interp_method else "-"
+        return [
+            ("attributes", [f"name: {self.name!r}", f"vector_type: {self.vector_type}",
+                            f"interp_method: {interp}"]),
+            ("components", comps),
+        ]
+
+    def describe(self, buf=None) -> None:
+        from parcels_tpu_torch._repr import write_sections
+
+        write_sections(f"VectorField {self.name!r}", self._repr_sections(), buf)
+
+    def _repr_html_(self):
+        from parcels_tpu_torch._repr import html_sections
+
+        return html_sections(f"VectorField {self.name!r}", self._repr_sections())
 
 
 # ---------------------------------------------------------------------------

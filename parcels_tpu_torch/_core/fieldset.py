@@ -206,6 +206,57 @@ class FieldSet:
             )
         object.__setattr__(self, name, value)
 
+    def __add__(self, other):
+        """Combine two FieldSets (reference fieldset.py:110-117): union of
+        fields and context constants; name collisions raise ValueError.
+
+        The combined set lives on the sources' device and shares their
+        field tensors, so nothing crosses to the device again; sources on
+        two devices raise ValueError.
+        """
+        if not isinstance(other, FieldSet):
+            return NotImplemented
+        if self.device != other.device:
+            raise ValueError(
+                f"Cannot add FieldSets on different devices ({self.device} and {other.device})."
+            )
+        common = set(self._fields) & set(other._fields)
+        if common:
+            raise ValueError(
+                "Cannot add FieldSets that have field names in common. "
+                f"Duplicate field names are: {sorted(common)}"
+            )
+        common_ctx = set(self.context) & set(other.context)
+        if common_ctx:
+            raise ValueError(
+                "Cannot add FieldSets that have context value names in common. "
+                f"Duplicate context value names are: {sorted(common_ctx)}"
+            )
+        # shallow-copy fields (sharing data/grid/interpolator) so add_field's
+        # igrid/back-pointer assignment cannot corrupt the source fieldsets
+        memo: dict = {}
+
+        def copy_field(f):
+            if id(f) in memo:
+                return memo[id(f)]
+            if isinstance(f, VectorField):
+                c = VectorField(f.name, copy_field(f.U), copy_field(f.V),
+                                copy_field(f.W) if f.W is not None else None,
+                                interp_method=f.interp_method)
+            else:
+                c = Field(f.name, f.data, f.grid, interp_method=f.interp_method)
+            memo[id(f)] = c
+            return c
+
+        combined = FieldSet(device=self.device)
+        for src in (self, other):
+            for name, f in src._fields.items():
+                combined.add_field(copy_field(f), name)
+                if name in src._field_tensors:
+                    combined._field_tensors[name] = src._field_tensors[name]
+        combined.context.update({**self.context, **other.context})
+        return combined
+
     @property
     def fields(self) -> dict:
         return self._fields
@@ -710,8 +761,122 @@ class FieldSet:
             return tuple(o.cpu().numpy() for o in out)
         return out.cpu().numpy()
 
+    def memory_report(self, particles: int = 0, device_bytes: int | None = None,
+                      bands: int = 1) -> dict:
+        """Analytic device-memory budget of this fieldset (no allocation).
+
+        Counts what the port puts on the device: the field tensors (the
+        time window's levels when streaming, else the whole time axis), the
+        grid tensors (coordinates; the curvilinear search table, 16 f32 a
+        cell, and the C-grid geometry, 9 f32 a cell; the lookup raster; a
+        UGRID mesh's node, face and raster tables and its fused face rows),
+        the stage cache's fused cell rows and the UGRID column tables
+        (``ops/stagecache.table_bytes``), and the particle SoA of
+        ``particles`` particles after ``ParticleSet``'s capacity padding,
+        with the persistent cache columns where they apply. ``bands``
+        divides the Y extent of the fields and the per-cell tables, as a
+        band of a Y-band decomposition would hold them. ``device_bytes``
+        defaults to the card's total memory, and is None on the CPU (then
+        ``fits`` is None).
+        """
+        from parcels_tpu_torch._core.particleset import soa_bytes
+        from parcels_tpu_torch._core.uxgrid import UxGrid
+        from parcels_tpu_torch.ops import stagecache, uxcol
+
+        fields = {}
+        for name, f in self._fields.items():
+            if not isinstance(f, Field):
+                continue
+            shape = self._device_shape(f)
+            if len(shape) == 4:
+                T, Z, Y, X = shape
+                fields[name] = T * Z * -(-Y // bands) * X * 4
+            else:
+                fields[name] = int(np.prod(shape)) * 4
+        tables = stagecache.table_bytes(self)
+        grids = []
+        for i, g in enumerate(self._gridset):
+            if isinstance(g, UxGrid):
+                sp = g.spec
+                entry = {
+                    "coords": (2 * sp.n_node + sp.nz + g.time.size) * 4,
+                    "mesh": (sp.n_node * (3 if sp.spherical else 2) * 4
+                             + g.face_node_connectivity.nbytes + g._adjacency.nbytes),
+                    "lookup": int(g._lookup["fi"].nbytes),
+                    "face_table": sp.n_face * uxcol.ROW_WIDTH * 4
+                    if uxcol.enabled(sp.n_face, self.device) else 0,
+                }
+            else:
+                coords = sum(int(np.asarray(a).size) * 4 for a in (g.lon, g.lat, g.depth, g.time))
+                entry = {"coords": coords, "pic_table": 0, "cgrid_geom": 0, "lookup": 0,
+                         "cell_table": tables["cell_table"].get(i, 0) // max(bands, 1)}
+                if g.spec.curvilinear:
+                    cells = max(g.spec.ydim, 1) * max(g.spec.xdim, 1) // max(bands, 1)
+                    entry["pic_table"] = cells * 16 * 4
+                    if g._needs_cgrid_geom and "X" in g.axes and "Y" in g.axes:
+                        entry["cgrid_geom"] = cells * 9 * 4
+                if g._lookup is not None:
+                    entry["lookup"] = int(g._lookup["yi"].nbytes + g._lookup["xi"].nbytes)
+            grids.append(entry)
+        soa = soa_bytes(self, particles)
+        total = (sum(fields.values()) + sum(sum(e.values()) for e in grids)
+                 + sum(tables["ux_tables"].values()) + soa)
+        if device_bytes is None and self.device.type == "cuda":
+            device_bytes = torch.cuda.get_device_properties(self.device).total_memory
+        return {
+            "fields": fields,
+            "grids": grids,
+            "tables": tables["ux_tables"],
+            "soa": soa,
+            "total": total,
+            "device_bytes": device_bytes,
+            "fits": None if device_bytes is None else total <= device_bytes,
+        }
+
+    def _repr_sections(self) -> list:
+        """Sectioned repr (reference fieldset_repr, _repr_utils.py:25-44)."""
+        def line(name, f):
+            interp = type(f.interp_method).__name__ if f.interp_method else "-"
+            return f"{name}: {f!r} interp={interp}"
+
+        fields = [line(n, f) for n, f in self._fields.items() if not isinstance(f, VectorField)]
+        vfields = [line(n, f) for n, f in self._fields.items() if isinstance(f, VectorField)]
+        misc = [f"device: {self.device}"]
+        if self.context:
+            misc.append(f"context: {self.context}")
+        if self.time_interval is not None:
+            misc.append(f"time_interval: {self.time_interval!r}")
+        if self._time_window is not None:
+            misc.append(f"time_window: {self._time_window} levels (streaming)")
+        mem = self.memory_report()
+        if mem["device_bytes"] is None:
+            misc.append(f"device memory: {mem['total'] / 2**30:.2f} GiB on {self.device} "
+                        "(fields + search tables; no device limit)")
+        else:
+            card = torch.cuda.get_device_name(self.device)
+            mline = (f"device memory: {mem['total'] / 2**30:.2f} GiB of "
+                     f"{mem['device_bytes'] / 2**30:.0f} GiB on {card} (fields + search tables)")
+            if not mem["fits"]:
+                mline += "  ** OVER BUDGET: use set_time_window **"
+            misc.append(mline)
+        grids = [f"grid[{i}]: {g!r}" for i, g in enumerate(self._gridset)]
+        return [("fields", fields), ("vectorfields", vfields), ("grids", grids),
+                ("simulation", misc)]
+
+    def describe(self, buf=None) -> None:
+        import sys
+
+        (buf or sys.stdout).write(repr(self) + "\n")
+
     def __repr__(self) -> str:
-        return f"FieldSet(fields={list(self._fields)}, device={self.device})"
+        from parcels_tpu_torch._repr import format_sections
+
+        return format_sections(type(self).__name__, self._repr_sections())
+
+    def _repr_html_(self) -> str:
+        from parcels_tpu_torch._repr import html_sections
+
+        return html_sections(type(self).__name__, self._repr_sections())
 
 
 def _copier(values: np.ndarray):

@@ -164,6 +164,54 @@ class XGrid(BaseGrid):
             )
         return {"X": self.spec.xdim, "Y": self.spec.ydim, "Z": self.spec.zdim}[axis]
 
+    def get_axis_dim_mapping(self, dims) -> dict[str, str]:
+        """``{axis: dim}`` for the dims of ``dims`` that lie on this grid's axes."""
+        dim_to_axis = self.sgrid_metadata.dim_to_axis()
+        out = {}
+        for d in dims:
+            ax = dim_to_axis.get(str(d))
+            if ax in self.axes:
+                out[ax] = str(d)
+        return out
+
+    def localize(self, position: dict, dims) -> dict:
+        """Convert an f-point search position to a variable's staggered frame.
+
+        Reference API (xgrid.py:233-281 and ``_convert_center_pos_to_fpoint``
+        :538-565): given ``position`` as ``{axis: (index, bcoord)}`` (tuples,
+        or the ``{"index", "bcoord"}`` dicts ``search`` returns, numpy or
+        torch) and the variable's ``dims``, return ``{dim: (index, bcoord)}``
+        in the frame of the staggered grid the variable lives on. Face-placed
+        dims shift the barycentric coordinate by -0.5 (borrowing a cell when
+        it goes negative) and add the LOW/BOTH-padding index offset;
+        node-placed dims pass through. Host arithmetic in float64, as the JAX
+        package's.
+        """
+        md = self.sgrid_metadata
+        dim_to_axis = md.dim_to_axis()
+        axis_to_dim = {dim_to_axis[d]: d for d in dims if d in dim_to_axis}
+        out = {}
+        for axis, pos in position.items():
+            if axis not in axis_to_dim:
+                continue
+            dim = axis_to_dim[axis]
+            index, bcoord = (pos["index"], pos["bcoord"]) if isinstance(pos, dict) else pos
+            index, bcoord = _host_array(index), _host_array(bcoord)
+            scalar = np.ndim(index) == 0
+            bcoord = bcoord.astype(np.float64)
+            if md.dim_position(dim) == "face":
+                bcoord = bcoord - 0.5
+                borrow = bcoord < 0
+                bcoord = np.where(borrow, bcoord + 1.0, bcoord)
+                index = index - borrow.astype(index.dtype)
+                if md.axis_padding(axis) in (sgrid.Padding.BOTH, sgrid.Padding.LOW):
+                    index = index + 1
+            if scalar:
+                out[dim] = (int(index), float(bcoord))
+            else:
+                out[dim] = (index, bcoord)
+        return out
+
     def device_arrays(self, device, dtype=np.float32) -> dict:
         """Grid coordinate arrays and search tables on ``device`` (part of
         the field arrays)."""
@@ -246,6 +294,30 @@ class XGrid(BaseGrid):
             f"XGrid({kind}, {mesh}, cells z={self.spec.zdim} y={self.spec.ydim} "
             f"x={self.spec.xdim}, tdim={self.time.shape[0]})"
         )
+
+    def _repr_sections(self):
+        s = self.spec
+        return [
+            ("geometry", [repr(self)]),
+            ("staggering", [f"offset_x={s.offset_x} offset_y={s.offset_y} offset_z={s.offset_z}"]),
+        ]
+
+    def describe(self, buf=None) -> None:
+        from parcels_tpu_torch._repr import write_sections
+
+        write_sections(type(self).__name__, self._repr_sections(), buf)
+
+    def _repr_html_(self):
+        from parcels_tpu_torch._repr import html_sections
+
+        return html_sections(type(self).__name__, self._repr_sections())
+
+
+def _host_array(v) -> np.ndarray:
+    """A numpy copy of ``v`` (a torch tensor on any device, or array-like)."""
+    if isinstance(v, torch.Tensor):
+        return v.detach().cpu().numpy()
+    return np.asarray(v)
 
 
 def cgrid_geometry_from_coords(lon, lat, spherical: bool) -> np.ndarray:

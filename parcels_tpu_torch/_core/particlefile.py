@@ -113,6 +113,11 @@ class ParticleFile:
     # -- async write path -----------------------------------------------------
     def _ensure_thread(self):
         if self._thread is None:
+            # pyarrow's first import happens on the caller's thread: a first
+            # import on the writer thread can make a later read in the main
+            # thread crash (pyarrow 25 beside torch)
+            import pyarrow.parquet  # noqa: F401
+
             self._thread = threading.Thread(target=self._worker, daemon=True)
             self._thread.start()
 
@@ -204,6 +209,19 @@ class ParticleFile:
 
     def __repr__(self):
         return f"ParticleFile(path={self._path!r}, outputdt={self._outputdt})"
+
+    def _repr_sections(self):
+        return [("attributes", [f"path: {self._path!r}", f"outputdt: {self._outputdt}"])]
+
+    def describe(self, buf=None) -> None:
+        from parcels_tpu_torch._repr import write_sections
+
+        write_sections(type(self).__name__, self._repr_sections(), buf)
+
+    def _repr_html_(self):
+        from parcels_tpu_torch._repr import html_sections
+
+        return html_sections(type(self).__name__, self._repr_sections())
 
 
 def _to_write_particles(data: dict, t: float) -> np.ndarray:

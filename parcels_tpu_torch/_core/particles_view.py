@@ -5,7 +5,12 @@ return the full per-lane tensor; attribute writes are merged back into the
 shared SoA dict under the engine-supplied lane mask, which reproduces the
 reference's "kernel runs on the masked subset, writes go to the parent
 SoA" semantics without dynamic shapes. Writes build new tensors and never
-update the SoA in place, so a shallow copy of the dict is a snapshot.
+update the SoA in place, so a shallow copy of the dict is a snapshot. A read
+is a ``_KernelTensor``: its augmented assignments (``particles.age +=
+particles.dt``) compute a new tensor, as they do on the JAX package's
+immutable arrays, and the masked write then merges it; on a plain tensor
+they would write into the SoA in place, unmasked lanes and output
+snapshots included.
 
 Random draws: the SoA's ``_rng`` is a (2,) uint32 key, as in the JAX
 package, kept on the host (a CPU tensor) so that a draw needs no device
@@ -18,10 +23,36 @@ the JAX package's threefry streams.
 
 from __future__ import annotations
 
+import operator
+
 import numpy as np
 import torch
 
 __all__ = ["Particles", "split_key"]
+
+
+class _KernelTensor(torch.Tensor):
+    """A particle variable as a kernel reads it: a plain tensor (no
+    ``__torch_function__`` overhead; results of its operations are plain
+    tensors) whose augmented assignments are out of place."""
+
+    __torch_function__ = torch._C._disabled_torch_function_impl
+
+
+def _out_of_place(op):
+    def method(self, other):
+        return op(self.as_subclass(torch.Tensor), other)
+
+    return method
+
+
+for _name, _op in (("__iadd__", operator.add), ("__isub__", operator.sub),
+                   ("__imul__", operator.mul), ("__itruediv__", operator.truediv),
+                   ("__ifloordiv__", operator.floordiv), ("__imod__", operator.mod),
+                   ("__ipow__", operator.pow), ("__iand__", operator.and_),
+                   ("__ior__", operator.or_), ("__ixor__", operator.xor)):
+    setattr(_KernelTensor, _name, _out_of_place(_op))
+del _name, _op
 
 
 def split_key(key, num: int = 2) -> list:
@@ -54,7 +85,7 @@ class Particles:
 
     def __getattr__(self, name):
         try:
-            return self._data[name]
+            return self._data[name].as_subclass(_KernelTensor)
         except KeyError as e:
             raise AttributeError(f"Particles have no variable {name!r}") from e
 

@@ -9,7 +9,9 @@ particle ends a chunk in an error state. Under ``FieldSet.set_time_window``
 each chunk is clamped to what one window covers, and the next window is
 prefetched while the chunk runs. ``checkpoint``/``from_checkpoint`` save
 and restore the whole SoA; ``from_particlefile`` restarts from a written
-trajectory file.
+trajectory file. ``pset += other`` merges a second release on the set's
+device, ``remove_indices`` recaptures particles, and iteration, indexing
+and ``describe`` copy each column to the host once per call.
 
 Particle meshes and domain decomposition belong to the scale-out slice of
 the port; the lockstep time window of the JAX package is not ported (the
@@ -40,6 +42,47 @@ __all__ = ["ParticleSet", "state_from_numpy"]
 
 #: SoA columns of the engine's persistent caches, which are no particle variables
 _CACHE_PREFIXES = ("_sc_", "_uxc_")
+
+
+def padded_capacity(n: int, block_size: int = DEFAULT_BLOCK_SIZE) -> int:
+    """The lane count ``execute`` pads ``n`` particles to: the next power of
+    two (>= 8) below 8192, multiples of 8192 beyond, then multiples of
+    ``block_size``."""
+    if n < 8192:
+        target = 8
+        while target < n:
+            target *= 2
+    else:
+        target = -(-n // 8192) * 8192
+    if target > block_size and target % block_size:
+        target = -(-target // block_size) * block_size
+    return target
+
+
+def soa_bytes(fieldset, particles: int, pclass=Particle) -> int:
+    """Device bytes of the SoA of ``particles`` particles of ``pclass`` on
+    ``fieldset`` once ``execute`` has padded it: every column (the host-side
+    RNG key aside), with the persistent cache columns where they apply."""
+    if particles <= 0:
+        return 0
+    from parcels_tpu_torch.ops import stagecache, uxcache
+
+    row = create_particle_data(pclass=pclass, nparticles=1, ngrids=len(fieldset.gridset))
+    cols = [v for k, v in row.items() if k != "_rng"]
+    sc_ok, sc_w = stagecache.soa_cache_applicable(fieldset)
+    if sc_ok:
+        cols += list(stagecache.make_soa_cache(1, sc_w, "cpu").values())
+    uxc_ok, uxc_meta = uxcache.soa_cache_applicable(fieldset)
+    if uxc_ok:
+        cols += list(uxcache.make_soa_cache(1, uxc_meta, "cpu").values())
+    return padded_capacity(particles) * sum(int(c.nbytes) for c in cols)
+
+
+def _cache_fill(key: str, n: int, like: torch.Tensor) -> torch.Tensor:
+    """Fresh (invalid) entries of a persistent cache column for ``n`` lanes:
+    -1 keys, 0 values."""
+    return torch.full((n,) + tuple(like.shape[1:]), -1 if key.endswith("_key") else 0,
+                      dtype=like.dtype, device=like.device)
 
 
 def _to_device(arr, device) -> torch.Tensor:
@@ -152,8 +195,157 @@ class ParticleSet:
     def size(self):
         return len(self)
 
+    def _host_columns(self) -> dict:
+        """Every particle column as numpy, each copied from the device once
+        (the RNG key and the persistent cache columns left out)."""
+        return {k: _host(v) for k, v in self._data.items()
+                if k != "_rng" and not k.startswith(_CACHE_PREFIXES)}
+
+    def _summary(self, host: dict) -> str:
+        act = host["_active"]
+        n = int(act.sum())
+        uniq = dict(zip(*np.unique(host["state"][act], return_counts=True))) if n else {}
+        return (
+            f"ParticleSet(n={n}, pclass={getattr(self._pclass, '__name__', self._pclass)!r}, "
+            f"states={ {int(k): int(v) for k, v in uniq.items()} }, device={self.device})"
+        )
+
     def __repr__(self):
-        return f"ParticleSet(n={len(self)}, device={self.device})"
+        return self._summary({k: _host(self._data[k]) for k in ("_active", "state")})
+
+    def _repr_sections(self):
+        """Sectioned repr (reference particleset_repr, _repr_utils.py:91-105)."""
+        host = self._host_columns()
+        act = host["_active"]
+        bounds = []
+        for k in ("x", "y", "z", "t"):
+            v = host[k][act]
+            if v.size:
+                bounds.append(f"{k}: min={v.min():.6g} max={v.max():.6g}")
+        n = int(act.sum())
+        sample = [repr(_ParticleRecord(host, int(i))) for i in np.flatnonzero(act)[:7]]
+        if n > len(sample):
+            sample.append(f"... ({n - len(sample)} more)")
+        sections = [("summary", [self._summary(host)]), ("bounds", bounds), ("particles", sample)]
+        stats = getattr(self, "last_run_stats", None)
+        if stats:
+            sections.append(("last run", [f"{k}: {v}" for k, v in stats.items()]))
+        return sections
+
+    def describe(self, buf=None) -> None:
+        from parcels_tpu_torch._repr import write_sections
+
+        write_sections(type(self).__name__, self._repr_sections(), buf)
+
+    def _repr_html_(self):
+        from parcels_tpu_torch._repr import html_sections
+
+        return html_sections(type(self).__name__, self._repr_sections())
+
+    def add(self, other: "ParticleSet") -> "ParticleSet":
+        """Merge ``other``'s particles into this set in place (reference
+        ParticleSet.add / ``pset += other``), on this set's device.
+
+        Inactive lanes of both sets (deleted, removed, capacity padding) are
+        dropped. The engine's persistent cache columns (``_sc_*``,
+        ``_uxc_*``) are injected by ``execute``, so a set that has not run
+        lacks them: they are no particle variables, and the side without
+        them gets fresh invalid entries (keys -1, values 0). This set keeps
+        its RNG key. Sets on two devices raise ValueError.
+        """
+        if not isinstance(other, ParticleSet):
+            raise TypeError(f"Can only add another ParticleSet, got {type(other)}")
+        if other.device != self.device:
+            raise ValueError(
+                f"Cannot add a ParticleSet on {other.device} to one on {self.device}."
+            )
+
+        def _vars(d):
+            return {k for k in d if not k.startswith(_CACHE_PREFIXES)}
+
+        if _vars(self._data) != _vars(other._data):
+            raise ValueError("ParticleSets have different particle variables.")
+        a1, a2 = self._data["_active"], other._data["_active"]
+        n1, n2 = int(a1.sum()), int(a2.sum())
+        merged = {}
+        for k in list(self._data) + [k for k in other._data if k not in self._data]:
+            if k == "_rng":
+                merged[k] = self._data[k]
+                continue
+            v1 = self._data[k][a1] if k in self._data else _cache_fill(k, n1, other._data[k])
+            v2 = other._data[k][a2] if k in other._data else _cache_fill(k, n2, self._data[k])
+            merged[k] = torch.cat([v1, v2])
+        self._data = merged
+        return self
+
+    def __iadd__(self, other):
+        return self.add(other)
+
+    def __iter__(self):
+        """Iterate over active particles as read-only records; each column
+        crosses to the host once per call."""
+        host = self._host_columns()
+        for i in np.flatnonzero(host["_active"]):
+            yield _ParticleRecord(host, int(i))
+
+    def __getitem__(self, index):
+        """A single ACTIVE particle by index (reference particleset.py:165).
+
+        Indexing is active-relative, as ``__iter__``, ``remove_indices`` and
+        ``data_indices`` are: padding and deleted lanes are not addressable.
+        Each column crosses to the host once.
+        """
+        host = self._host_columns()
+        return _ParticleRecord(host, int(np.flatnonzero(host["_active"])[int(index)]))
+
+    def set_variable_write_status(self, var: str, write_status: bool):
+        """Set whether ``var`` is written to trajectory output
+        (reference particleset.py:342-352)."""
+        names = [v.name for v in self._pclass.variables]
+        if var not in names:
+            raise ValueError(f"Particle class has no variable {var!r}")
+        if write_status not in (True, False):
+            raise ValueError(f"write_status must be True or False. Got {write_status!r}")
+        from parcels_tpu_torch._core.particle import ParticleClass, Variable
+
+        def toggled(v):
+            nv = Variable(v.name, v.dtype, v.initial, write_status, None)
+            # keep CF attrs through a disable/enable cycle (the constructor
+            # forbids attrs on non-written vars, but they must survive)
+            nv.attrs = dict(v.attrs)
+            return nv
+
+        self._pclass = ParticleClass(
+            [toggled(v) if v.name == var else v for v in self._pclass.variables]
+        )
+
+    def remove_indices(self, indices):
+        """Deactivate the particles at the given active-relative indices."""
+        idx = np.asarray(indices)
+        if idx.dtype != bool:
+            idx = idx.astype(np.int64)
+        active = self._data["_active"]
+        rows = torch.nonzero(active).flatten()[torch.as_tensor(idx, device=self.device)]
+        mask = active.clone()
+        mask[rows] = False
+        self._data["_active"] = mask
+
+    def data_indices(self, variable_name, compare_values, invert=False):
+        """Active-relative indices of the particles whose ``variable_name``
+        is (``invert``: is not) one of ``compare_values``."""
+        compare_values = np.atleast_1d(compare_values)
+        vals = self.__getattr__(variable_name)
+        return np.where(np.isin(vals, compare_values, invert=invert))[0]
+
+    @property
+    def _error_particles(self):
+        return self.data_indices("state", [StatusCode.Success, StatusCode.Evaluate], invert=True)
+
+    @property
+    def _num_error_particles(self):
+        return int(
+            np.sum(np.isin(self.state, [StatusCode.Success, StatusCode.Evaluate], invert=True))
+        )
 
     def __getattr__(self, name):
         """Active lanes of a particle variable, as numpy. The engine's
@@ -498,19 +690,9 @@ class ParticleSet:
                 fs.add_context("RK45_max_dt", 60 * 60 * 24)
 
     def _pad_capacity(self, block_size: int):
-        """Pad the SoA with inactive lanes to a canonical lane count: the next
-        power of two (>= 8) below 8192, multiples of 8192 beyond, then
-        multiples of ``block_size``."""
+        """Pad the SoA with inactive lanes to ``padded_capacity``."""
         n = self._data["state"].shape[0]
-        if n < 8192:
-            target = 8
-            while target < n:
-                target *= 2
-        else:
-            target = -(-n // 8192) * 8192
-        if target > block_size and target % block_size:
-            target = -(-target // block_size) * block_size
-        pad = target - n
+        pad = padded_capacity(n, block_size) - n
         if pad == 0:
             return
         out = {}
@@ -542,6 +724,29 @@ class ParticleSet:
             zi = np.clip(np.searchsorted(depth, z, side="right") - 1, 0, depth.size - 2)
             frac = np.unique(zi).size / max(depth.size - 1, 1)
         return quantize_z_occupancy(frac)
+
+
+class _ParticleRecord:
+    """Read-only row view yielded by ``iter(ParticleSet)``, over host
+    columns."""
+
+    __slots__ = ("_data", "_i")
+
+    def __init__(self, data, i):
+        object.__setattr__(self, "_data", data)
+        object.__setattr__(self, "_i", i)
+
+    def __getattr__(self, name):
+        data = object.__getattribute__(self, "_data")
+        if name in data:
+            return data[name][object.__getattribute__(self, "_i")]
+        raise AttributeError(name)
+
+    def __repr__(self):
+        d, i = self._data, self._i
+        fields = ", ".join(f"{k}={d[k][i]:.6g}" for k in ("x", "y", "z", "t") if k in d)
+        pid = d["particle_id"][i] if "particle_id" in d else i
+        return f"Particle(id={pid}, {fields})"
 
 
 def _check_kernel_signature(f):

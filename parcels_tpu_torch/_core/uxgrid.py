@@ -216,6 +216,28 @@ class UxGrid(BaseGrid):
             f"nz={self.spec.nz}, lookup={self.spec.lookup_shape})"
         )
 
+    def _repr_sections(self):
+        fi = self._lookup["fi"]
+        return [
+            ("geometry", [repr(self)]),
+            ("search", [f"lookup raster: {fi.shape[0]}x{fi.shape[1]} cells, "
+                        f"{(fi >= 0).mean() * 100:.1f}% seeded",
+                        f"boundary edges: {(self._adjacency < 0).sum()}"]),
+        ]
+
+    def describe(self, buf=None) -> None:
+        """The JAX package's text: the repr, the raster's seeding, the
+        boundary edges."""
+        import sys
+
+        search = dict(self._repr_sections())["search"]
+        (buf or sys.stdout).write(f"{self!r}\n" + "".join(f"  {ln}\n" for ln in search))
+
+    def _repr_html_(self):
+        from parcels_tpu_torch._repr import html_sections
+
+        return html_sections(type(self).__name__, self._repr_sections())
+
 
 def _build_face_lookup(node_lon, node_lat, conn, cells_per_tri: float = 2.0, max_dim: int = 1024):
     """Coarse raster (lat, lon) -> covering/nearest face index, built on the host.

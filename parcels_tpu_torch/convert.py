@@ -1,15 +1,23 @@
-"""Model-output -> SGRID / UGRID convention normalizers (NEMO, CROCO, FESOM2, ICON).
+"""Model-output -> SGRID/UGRID convention normalizers.
 
-Copy of the NEMO, CROCO, FESOM2 and ICON parts of the JAX package's
-``convert.py``: ``nemo_to_sgrid``, ``croco_to_sgrid``, ``fesom_to_ugrid``,
-``icon_to_ugrid`` and the helpers they call, unchanged apart from the
-imports. They take raw model output (xrlite or real xarray datasets,
-duck-typed) and return a dataset for ``FieldSet.from_sgrid_conventions`` or
-``FieldSet.from_ugrid_conventions``. The converters for other models belong
-to a later slice of the port.
+Copy of the JAX package's ``convert.py``, unchanged apart from the imports:
+per-model functions that take raw model output (xrlite or real xarray
+datasets, duck-typed) and return an SGRID/UGRID-annotated dataset for
+``FieldSet.from_sgrid_conventions`` / ``from_ugrid_conventions``.
+
+Supported models (the reference's set):
+- NEMO (``nemo_to_sgrid``, reference convert.py:308)
+- MITgcm (``mitgcm_to_sgrid``, reference convert.py:411)
+- CROCO (``croco_to_sgrid``, reference convert.py:469)
+- Copernicus Marine (``copernicusmarine_to_sgrid``, reference convert.py:526)
+- Delft3D structured (``delft3d_to_sgrid``, reference convert.py:589)
+- FESOM2 (``fesom_to_ugrid``, reference convert.py:775)
+- ICON (``icon_to_ugrid``, reference convert.py:813)
 """
 
 from __future__ import annotations
+
+import warnings
 
 import numpy as np
 
@@ -17,7 +25,15 @@ from parcels_tpu_torch import _sgrid as sgrid
 from parcels_tpu_torch import xrlite as xr
 from parcels_tpu_torch._logging import logger
 
-__all__ = ["croco_to_sgrid", "fesom_to_ugrid", "icon_to_ugrid", "nemo_to_sgrid"]
+__all__ = [
+    "copernicusmarine_to_sgrid",
+    "croco_to_sgrid",
+    "delft3d_to_sgrid",
+    "fesom_to_ugrid",
+    "icon_to_ugrid",
+    "mitgcm_to_sgrid",
+    "nemo_to_sgrid",
+]
 
 _NEMO_VARNAMES_MAPPING = {
     "time_counter": "time",
@@ -31,14 +47,109 @@ _NEMO_VARNAMES_MAPPING = {
     "vomecrty": "V",
     "vovecrtz": "W",
 }
-
 _NEMO_AXIS_VARNAMES = {
     "x": "X", "x_center": "X", "y": "Y", "y_center": "Y",
     "depth": "Z", "depth_center": "Z", "time": "T",
 }
-
+_MITGCM_VARNAMES_MAPPING = {"XG": "lon", "YG": "lat", "Zl": "depth"}
+_MITGCM_AXIS_VARNAMES = {
+    "XC": "X", "XG": "X", "Xp1": "X", "lon": "X",
+    "YC": "Y", "YG": "Y", "Yp1": "Y", "lat": "Y",
+    "Zu": "Z", "Zl": "Z", "Zp1": "Z", "time": "T",
+}
 _CROCO_VARNAMES_MAPPING = {"x_rho": "lon", "y_rho": "lat", "s_w": "depth"}
+_COPERNICUS_AXIS_COORDS = {
+    "longitude": "lon", "latitude": "lat", "lon": "lon", "lat": "lat",
+    "depth": "depth", "elevation": "depth", "time": "time",
+}
+_DELFT3D_VARNAMES_MAPPING = {
+    "XZETA": "lon", "YZETA": "lat", "SIGMA_C": "depth", "TIME": "time",
+}
+_DELFT3D_AXIS_VARNAMES = {"M": "X", "N": "Y", "LAYER": "Z", "time": "T"}
 
+# vertical dim names per unstructured model (reference convert.py:650-652)
+_FESOM2_VERTICAL_DIMS = {"interface": "nz", "center": "nz1"}
+_ICON_VERTICAL_DIMS = {"interface": "depth_2", "center": "depth"}
+
+# CF standard_name pairs identifying the (U, V) velocity components across
+# Copernicus Marine products (reference fieldset.py:444-469, where the table
+# is defined but never consumed; here it drives actual autodiscovery when the
+# caller passes native-named variables instead of U/V keys).
+_COPERNICUS_MARINE_CF_STANDARD_NAME_FALLBACKS = {
+    "UV": [
+        ("eastward_sea_water_velocity", "northward_sea_water_velocity"),
+        ("surface_geostrophic_eastward_sea_water_velocity",
+         "surface_geostrophic_northward_sea_water_velocity"),
+        ("geostrophic_eastward_sea_water_velocity",
+         "geostrophic_northward_sea_water_velocity"),
+        ("sea_surface_wave_stokes_drift_x_velocity",
+         "sea_surface_wave_stokes_drift_y_velocity"),
+        ("sea_water_x_velocity", "sea_water_y_velocity"),
+        ("eastward_sea_water_velocity_vertical_mean_over_pelagic_layer",
+         "northward_sea_water_velocity_vertical_mean_over_pelagic_layer"),
+    ],
+    "W": ["upward_sea_water_velocity", "vertical_sea_water_velocity"],
+}
+
+
+def _maybe_flip_descending_lat(ds: xr.Dataset) -> xr.Dataset:
+    """Reverse a descending 1-D ``lat`` coordinate (and every variable along
+    its dimension).
+
+    ERA5 and some Copernicus products ship latitude north-to-south; the grid
+    runtime requires strictly increasing axes (as does the reference,
+    xgrid.py:512-515, which asks the user to reindex instead — here the
+    converter does the reindex).
+    """
+    if "lat" not in ds:
+        return ds
+    lat = ds["lat"]
+    if lat.ndim != 1 or lat.shape[0] < 2 or not np.all(np.diff(lat.values) < 0):
+        return ds
+    dim = lat.dims[0]
+    logger.info("convert: flipping descending 1-D latitude axis %r", dim)
+    out = ds.copy()
+    for name, da in list(out.data_vars.items()) + list(out.coords.items()):
+        if dim in da.dims:
+            ax = da.dims.index(dim)
+            da.values = np.flip(np.asarray(da.values), axis=ax)
+    return out
+
+
+def _discover_copernicus_uv(ds: xr.Dataset) -> xr.Dataset:
+    """Rename native-named velocity variables to U/V/W via CF standard names.
+
+    No-op when U and V already exist. Raises if two candidate pairs match.
+    """
+    if "U" in ds.data_vars and "V" in ds.data_vars:
+        return ds
+    by_std = {}
+    for name, da in ds.data_vars.items():
+        std = da.attrs.get("standard_name")
+        if std:
+            by_std.setdefault(std, []).append(name)
+    rename: dict[str, str] = {}
+    for u_std, v_std in _COPERNICUS_MARINE_CF_STANDARD_NAME_FALLBACKS["UV"]:
+        if u_std in by_std and v_std in by_std:
+            if rename:
+                raise ValueError(
+                    "Multiple velocity-component pairs matched Copernicus Marine "
+                    "standard-name fallbacks; pass fields={'U': ..., 'V': ...} explicitly."
+                )
+            if len(by_std[u_std]) > 1 or len(by_std[v_std]) > 1:
+                raise ValueError(
+                    f"Ambiguous variables for standard names {u_std!r}/{v_std!r}."
+                )
+            rename[by_std[u_std][0]] = "U"
+            rename[by_std[v_std][0]] = "V"
+    for w_std in _COPERNICUS_MARINE_CF_STANDARD_NAME_FALLBACKS["W"]:
+        if w_std in by_std and "W" not in ds.data_vars and len(by_std[w_std]) == 1:
+            rename[by_std[w_std][0]] = "W"
+            break
+    if rename:
+        logger.info("convert: standard-name velocity discovery %s", rename)
+        ds = ds.rename(rename)
+    return ds
 
 
 def _as_xrlite(ds) -> xr.Dataset:
@@ -57,7 +168,6 @@ def _as_xrlite(ds) -> xr.Dataset:
         out.set_coords(name)
     out.attrs.update(dict(getattr(ds, "attrs", {})))
     return out
-
 
 
 def _merge_fields_and_coords(fields: dict, coords) -> xr.Dataset:
@@ -80,7 +190,6 @@ def _merge_fields_and_coords(fields: dict, coords) -> xr.Dataset:
     return ds
 
 
-
 def _maybe_rename(ds: xr.Dataset, mapping: dict) -> xr.Dataset:
     found = {k: v for k, v in mapping.items() if k in ds or k in ds.dims}
     if found:
@@ -89,13 +198,43 @@ def _maybe_rename(ds: xr.Dataset, mapping: dict) -> xr.Dataset:
     return ds
 
 
-
 def _set_axis_attrs(ds: xr.Dataset, dim_axis: dict) -> xr.Dataset:
     for dim, axis in dim_axis.items():
         if dim in ds:
             ds[dim].attrs["axis"] = axis
     return ds
 
+
+def _maybe_swap_depth_direction(ds: xr.Dataset) -> xr.Dataset:
+    """Flip a decreasing depth axis (and all data on it) to increasing."""
+    if "depth" not in ds:
+        return ds
+    depth = np.asarray(ds["depth"].values)
+    if depth.size > 1 and depth[0] > depth[-1]:
+        logger.info("convert: flipping decreasing depth axis")
+        ddim = ds["depth"].dims[0]
+        for name, da in list(ds.variables.items()):
+            if ddim in da.dims:
+                ax = da.dims.index(ddim)
+                ds[name] = xr.DataArray(np.flip(np.asarray(da.values), axis=ax),
+                                        dims=da.dims, attrs=da.attrs, name=name)
+    return ds
+
+
+def _maybe_expand_depth(ds: xr.Dataset, depth_axis_pos: int = 1) -> xr.Dataset:
+    """Add a singleton depth dimension to depth-less velocity fields."""
+    if "depth" in ds.dims:
+        return ds
+    for name in list(ds.data_vars):
+        da = ds[name]
+        if "time" in da.dims and "depth" not in da.dims and da.ndim >= 3:
+            vals = np.expand_dims(np.asarray(da.values), axis=depth_axis_pos)
+            ds[name] = xr.DataArray(vals, dims=(da.dims[0], "depth") + da.dims[1:],
+                                    attrs=da.attrs, name=name)
+    ds["depth"] = xr.DataArray(np.zeros(1), dims=("depth",), attrs={"axis": "Z"})
+    ds.set_coords("depth")
+    logger.info("convert: added singleton depth dimension (surface data)")
+    return ds
 
 
 def _maybe_float_time_to_timedelta(ds: xr.Dataset) -> xr.Dataset:
@@ -120,7 +259,6 @@ def _maybe_float_time_to_timedelta(ds: xr.Dataset) -> xr.Dataset:
     return ds
 
 
-
 def _negate_w(ds: xr.Dataset) -> xr.Dataset:
     if "W" in ds.data_vars:
         # up-positive -> down-positive (positive z direction), reference :385
@@ -129,12 +267,15 @@ def _negate_w(ds: xr.Dataset) -> xr.Dataset:
     return ds
 
 
-
 def _attach_grid(ds: xr.Dataset, meta: sgrid.SGrid2DMetadata) -> xr.Dataset:
     if any(str(ds[v].attrs.get("cf_role")) == "grid_topology" for v in ds.data_vars):
         raise ValueError("Dataset already has grid_topology metadata.")
     return sgrid.attach_sgrid_metadata(ds, meta)
 
+
+# ---------------------------------------------------------------------------
+# Structured models
+# ---------------------------------------------------------------------------
 
 
 def nemo_to_sgrid(*, fields: dict, coords) -> xr.Dataset:
@@ -244,6 +385,29 @@ def nemo_to_sgrid(*, fields: dict, coords) -> xr.Dataset:
     return ds
 
 
+def mitgcm_to_sgrid(*, fields: dict, coords) -> xr.Dataset:
+    """MITgcm output -> SGRID dataset (reference convert.py:411-468)."""
+    ds = _merge_fields_and_coords(dict(fields), coords)
+    for name in ("XG", "YG", "Zl"):
+        if name not in ds:
+            raise ValueError(f"Expected coordinate {name!r} not found in provided coords dataset.")
+    ds = _maybe_rename(ds, _MITGCM_VARNAMES_MAPPING)
+    ds = _set_axis_attrs(ds, _MITGCM_AXIS_VARNAMES)
+    ds = _maybe_swap_depth_direction(ds)
+    return _attach_grid(
+        ds,
+        sgrid.SGrid2DMetadata(
+            node_dimensions=("lon", "lat"),
+            node_coordinates=("lon", "lat"),
+            face_dimensions=(
+                sgrid.FaceNodePadding("XC", "lon", sgrid.Padding.HIGH),
+                sgrid.FaceNodePadding("YC", "lat", sgrid.Padding.HIGH),
+            ),
+            vertical_dimensions=(sgrid.FaceNodePadding("depth", "depth", sgrid.Padding.HIGH),),
+        ),
+    )
+
+
 def croco_to_sgrid(*, fields: dict, coords) -> xr.Dataset:
     """CROCO output -> SGRID dataset (reference convert.py:469-524).
 
@@ -271,9 +435,55 @@ def croco_to_sgrid(*, fields: dict, coords) -> xr.Dataset:
     )
 
 
-# vertical dim names per unstructured model
-_FESOM2_VERTICAL_DIMS = {"interface": "nz", "center": "nz1"}
-_ICON_VERTICAL_DIMS = {"interface": "depth_2", "center": "depth"}
+def copernicusmarine_to_sgrid(*, fields: dict, coords=None) -> xr.Dataset:
+    """Copernicus Marine (A-grid) output -> SGRID dataset (reference :526-588)."""
+    ds = _merge_fields_and_coords(dict(fields), coords)
+    ds = _discover_copernicus_uv(ds)
+    ds = _maybe_rename(ds, _COPERNICUS_AXIS_COORDS)
+    ds = _maybe_flip_descending_lat(ds)
+    ds = _set_axis_attrs(ds, {"lon": "X", "lat": "Y", "depth": "Z", "time": "T"})
+    ds = _maybe_expand_depth(ds)
+    ds = _negate_w(ds)
+    return _attach_grid(
+        ds,
+        sgrid.SGrid2DMetadata(  # dummy *_center dims: A-grid, all on nodes
+            node_dimensions=("lon", "lat"),
+            node_coordinates=("lon", "lat"),
+            face_dimensions=(
+                sgrid.FaceNodePadding("x_center", "lon", sgrid.Padding.LOW),
+                sgrid.FaceNodePadding("y_center", "lat", sgrid.Padding.LOW),
+            ),
+            vertical_dimensions=(sgrid.FaceNodePadding("depth_center", "depth", sgrid.Padding.LOW),),
+        ),
+    )
+
+
+def delft3d_to_sgrid(*, fields: dict, coords) -> xr.Dataset:
+    """Structured Delft3D output -> SGRID dataset (reference convert.py:589-650)."""
+    warnings.warn(
+        "The delft3d_to_sgrid function is experimental and may not work for all "
+        "Delft3D datasets.",
+        UserWarning,
+        stacklevel=2,
+    )
+    ds = _merge_fields_and_coords(dict(fields), coords)
+    for name in ("XZETA", "YZETA"):
+        if name not in ds:
+            raise ValueError(f"Expected coordinate {name!r} not found in provided coords dataset.")
+    ds = _maybe_rename(ds, _DELFT3D_VARNAMES_MAPPING)
+    ds = _set_axis_attrs(ds, _DELFT3D_AXIS_VARNAMES)
+    return _attach_grid(
+        ds,
+        sgrid.SGrid2DMetadata(
+            node_dimensions=("M", "N"),
+            node_coordinates=("lon", "lat"),
+            face_dimensions=(
+                sgrid.FaceNodePadding("X", "M", sgrid.Padding.LOW),
+                sgrid.FaceNodePadding("Y", "N", sgrid.Padding.LOW),
+            ),
+            vertical_dimensions=(sgrid.FaceNodePadding("Z", "LAYER", sgrid.Padding.HIGH),),
+        ),
+    )
 
 
 # ---------------------------------------------------------------------------

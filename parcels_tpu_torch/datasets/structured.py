@@ -1,11 +1,12 @@
 """Idealized structured datasets with analytic truth trajectories.
 
-The subset of the JAX package's fixture library (datasets/structured.py)
-that the port's slices use: the SGRID wrapping helpers, the zero-flow
+Copy of the JAX package's fixture library (datasets/structured.py): the
+SGRID wrapping helpers, the zero-flow
 ``simple_UV_dataset`` that tests overwrite, the solid-body rotation, the
 Fabbroni (2009) moving and decaying eddies with their closed-form
-trajectories, the A- and C-grid peninsula, the Stommel gyre and the rotated
-curvilinear grid.
+trajectories, the A- and C-grid peninsula, the Stommel gyre, the rotated
+curvilinear grid, and the four SGRID padding variants of the C-grid
+staggering fixtures (``padded_variant_dataset``, ``generic_datasets``).
 """
 
 from __future__ import annotations
@@ -19,7 +20,9 @@ from parcels_tpu_torch._core.timeutils import timedelta_to_float
 __all__ = [
     "curvilinear_rotated_dataset",
     "decaying_moving_eddy_dataset",
+    "generic_datasets",
     "moving_eddy_dataset",
+    "padded_variant_dataset",
     "peninsula_dataset",
     "radial_rotation_dataset",
     "simple_UV_dataset",
@@ -305,3 +308,86 @@ def curvilinear_rotated_dataset(xdim=60, ydim=40, angle_deg=30.0, mesh="flat"):
         },
     )
     return _wrap_sgrid(ds, xdim, ydim)
+
+
+def padded_variant_dataset(variant: str, xdim=8, ydim=7, zdim=4, tdim=2, dx=1000.0, dz=10.0):
+    """C-grid staggering fixture in one of the four SGRID padding layouts.
+
+    Mirrors the reference's shared ``ds_2d_left/right/inner/outer`` fixtures
+    (reference _datasets/structured/generic.py:142-421): node-placed
+    ``data_g``/A-grid U/V, face-placed ``data_c``, and C-grid staggered
+    ``U_C_grid``/``V_C_grid``, with the face dims padded per variant:
+
+    - ``left``  — MITgcm indexing, ``Padding.HIGH`` (faces = nodes)
+    - ``right`` — NEMO indexing, ``Padding.LOW`` (faces = nodes)
+    - ``inner`` — centers strictly between nodes (faces = nodes - 1)
+    - ``outer`` — centers extended past nodes (faces = nodes + 1)
+
+    Note on labels: the reference tags its inner/outer fixtures BOTH/NONE,
+    which contradicts its own ``get_n_faces`` arithmetic (core.py:41-49:
+    NONE -> n-1, BOTH -> n+1). Here the padding labels follow the shared
+    ``get_n_faces`` math, so inner=NONE and outer=BOTH.
+
+    U fields are uniform 1 m/s zonal so each variant's offset handling is
+    verifiable against exact advection speed.
+    """
+    pad = {
+        "left": sgrid.Padding.HIGH,
+        "right": sgrid.Padding.LOW,
+        "inner": sgrid.Padding.NONE,
+        "outer": sgrid.Padding.BOTH,
+    }[variant]
+    nface = {"left": 0, "right": 0, "inner": -1, "outer": +1}[variant]
+    # center coordinate start offset relative to node 0, in cells
+    c0 = {"left": 0.5, "right": -0.5, "inner": 0.5, "outer": -0.5}[variant]
+    nfx, nfy, nfz = xdim + nface, ydim + nface, zdim + nface
+    rng = np.random.default_rng(42)
+    XG = np.arange(xdim) * dx
+    YG = np.arange(ydim) * dx
+    ZG = np.arange(zdim) * dz
+    time = np.array(
+        [np.datetime64("2000-01-01") + np.timedelta64(i, "h") for i in range(tdim)]
+    )
+    ds = xr.Dataset(
+        {
+            "data_g": (("time", "ZG", "YG", "XG"), rng.random((tdim, zdim, ydim, xdim))),
+            "data_c": (("time", "ZC", "YC", "XC"), rng.random((tdim, nfz, nfy, nfx))),
+            "U_A_grid": (("time", "ZG", "YG", "XG"), np.ones((tdim, zdim, ydim, xdim))),
+            "V_A_grid": (("time", "ZG", "YG", "XG"), np.zeros((tdim, zdim, ydim, xdim))),
+            "U_C_grid": (("time", "ZG", "YC", "XG"), np.ones((tdim, zdim, nfy, xdim))),
+            "V_C_grid": (("time", "ZG", "YG", "XC"), np.zeros((tdim, zdim, ydim, nfx))),
+        },
+        coords={
+            "XG": (("XG",), XG, {"axis": "X", "c_grid_axis_shift": -0.5}),
+            "XC": (("XC",), (np.arange(nfx) + c0) * dx, {"axis": "X"}),
+            "YG": (("YG",), YG, {"axis": "Y", "c_grid_axis_shift": -0.5}),
+            "YC": (("YC",), (np.arange(nfy) + c0) * dx, {"axis": "Y"}),
+            "ZG": (("ZG",), ZG, {"axis": "Z"}),
+            "ZC": (("ZC",), (np.arange(nfz) + c0) * dz, {"axis": "Z"}),
+            "lon": (("XG",), XG, {"units": "m"}),
+            "lat": (("YG",), YG, {"units": "m"}),
+            "depth": (("ZG",), ZG),
+            "time": (("time",), time, {"axis": "T"}),
+        },
+    )
+    meta = sgrid.SGrid2DMetadata(
+        node_dimensions=("XG", "YG"),
+        node_coordinates=("lon", "lat"),
+        face_dimensions=(
+            sgrid.FaceNodePadding("XC", "XG", pad),
+            sgrid.FaceNodePadding("YC", "YG", pad),
+        ),
+        vertical_dimensions=(sgrid.FaceNodePadding("ZC", "ZG", pad),),
+    )
+    return sgrid.attach_sgrid_metadata(ds, meta)
+
+
+def generic_datasets():
+    """The four padding-variant fixtures under their reference names
+    (reference generic.py:142-421 ``datasets`` dict)."""
+    return {
+        "ds_2d_left": padded_variant_dataset("left"),
+        "ds_2d_right": padded_variant_dataset("right"),
+        "ds_2d_inner": padded_variant_dataset("inner"),
+        "ds_2d_outer": padded_variant_dataset("outer"),
+    }

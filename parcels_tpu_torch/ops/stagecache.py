@@ -35,7 +35,7 @@ import torch
 from parcels_tpu_torch._core import index_search
 from parcels_tpu_torch._core.statuscodes import StatusCode
 
-__all__ = ["cgrid_cached_eval", "enabled", "flush", "prebuild_tables", "reset"]
+__all__ = ["cgrid_cached_eval", "enabled", "flush", "prebuild_tables", "reset", "table_bytes"]
 
 #: miss repair round capacity, as n/K_DIV lanes (floor 1024), as in the JAX
 #: package; ceil(misses/K) rounds run per stage
@@ -146,6 +146,53 @@ def prebuild_tables(fsview) -> None:
                 uxcol.ux_col_table(comp)
         if is_vector and enabled(v):
             cell_table(v)
+
+
+def table_bytes(fieldset) -> dict:
+    """Bytes of the tables that ``attach_derived_tables`` and
+    ``prebuild_tables`` add to a fieldset's tensors, reckoned from shapes
+    without building them (``FieldSet.memory_report``):
+    ``{"cell_table": {igrid: B}, "ux_tables": {field name: B}}``.
+
+    A curvilinear C-grid gets its fused (cells, 64) f32 row table where the
+    stage cache runs (``auto`` on CUDA, or ``force``). A UGRID grid whose
+    fused face-row tier is on gets, for each (T, Z, N) field within
+    ``uxcol.MAX_COLS``, its (N, max(T*Z, 64)) column table, and a vector
+    field under the per-face cache its (N*T, 2*max(Z, 64)) [U | V] z-row
+    table plus W's (N*T, max(Z, 64)).
+    """
+    from parcels_tpu_torch._core.field import Field, VectorField
+    from parcels_tpu_torch.ops import uxcache, uxcol
+
+    dev = fieldset.device
+    cell = {}
+    mode = _mode()
+    if mode not in ("0", "off") and (mode == "force" or dev.type == "cuda"):
+        for _, f in _cached_vector_fields(fieldset):
+            g = f.grid
+            if g._needs_cgrid_geom and "X" in g.axes and "Y" in g.axes:
+                cells = max(g.spec.ydim, 1) * max(g.spec.xdim, 1)
+                cell[f.igrid] = cells * CELL_TABLE_WIDTH * 4
+    ux = {}
+    uxc_mode = uxcache._mode()
+    for name, f in fieldset.fields.items():
+        n_face = getattr(f.grid.spec, "n_face", 0)
+        if n_face <= 0 or not uxcol.enabled(n_face, dev):
+            continue
+        if isinstance(f, Field):
+            T, Z, N = fieldset._device_shape(f)
+            if uxcol.col_usable((T, Z, N)):
+                ux[name] = N * max(T * Z, uxcol.ROW_WIDTH) * 4
+        elif (isinstance(f, VectorField) and uxc_mode not in ("0", "off")
+              and (uxc_mode == "force" or dev.type == "cuda") and uxcache._vf_meta(f) is not None):
+            comps = [c for c in (f.U, f.V, f.W) if c is not None]
+            if any(uxcol.col_usable(fieldset._device_shape(c)) for c in comps):
+                T, Z, N = fieldset._device_shape(f.U)
+                ux[name] = N * T * 2 * max(Z, uxcol.ROW_WIDTH) * 4
+                if f.W is not None:
+                    T, Z, N = fieldset._device_shape(f.W)
+                    ux[name] += N * T * max(Z, uxcol.ROW_WIDTH) * 4
+    return {"cell_table": cell, "ux_tables": ux}
 
 
 # ---------------------------------------------------------------------------

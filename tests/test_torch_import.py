@@ -22,6 +22,9 @@ def test_import_leaves_jax_out():
         "import parcels_tpu_torch._core.uxgrid, parcels_tpu_torch.native; "
         "import parcels_tpu_torch.interpolators.uxinterp, parcels_tpu_torch.datasets.unstructured; "
         "import parcels_tpu_torch.io, parcels_tpu_torch._core.windowing; "
+        "import parcels_tpu_torch.profiling, parcels_tpu_torch.tutorial, parcels_tpu_torch._repr; "
+        "import parcels_tpu_torch.datasets.remote, parcels_tpu_torch.datasets.circulation_models; "
+        "import parcels_tpu_torch._v3to4, parcels_tpu_torch._decorators, parcels_tpu_torch._strategies; "
         "bad = [m for m in ('jax', 'parcels_tpu') if m in sys.modules]; "
         "assert not bad, bad"
     )
