@@ -146,7 +146,43 @@ counter is set to 0 just before a path runs and read just after):
     (k)'s field through (k)'s add-and-remove sequence (3 steps, += a third,
     10 % removed, 3 steps; binned sampler forced on both devices): states
     equal, positions within rtol 1e-5. Each must launch K2 on the card, and
-    K2 is held bit for bit against its plain version on one of its stages.
+    K2 is held bit for bit against its plain version on one of its stages;
+21. (l) scale-out: (k)'s field banded (``YBandDomain``, halo 3, 2 spare
+    slab rows) over 4 ranks spawned on the one card (``torch.multiprocessing``
+    ``spawn``; gloo, since NCCL refuses two ranks on one device; a
+    ``FileStore`` under ``build/ranks``, new for the phase and deleted after
+    it; the kernels built by phase 1, only loaded by the ranks). 8M
+    particles over ocean cells of the whole grid, 10 % within 2 rows of an
+    interior band edge; RK4 at dt 15 min for 12 h with Parquet output every
+    3 h to one file a rank, ``rebalance`` (non-uniform edges, so all2all
+    migration), 6 h more. Each rank prints its slab's allocator rise
+    beside ``memory_report(bands=4)``'s field bytes (within 2 %), its peak
+    memory, K2's overflow share and its launches; K2 must launch on every
+    rank in both halves, and rank 0 holds it bit for bit against its plain
+    version on one banded stage; lanes must migrate in both halves. Against
+    the same seeds on one rank (resident, run by this process on (k)'s
+    field before the ranks start): after one step, states equal and every
+    lane within rtol 1e-6, atol 1e-4 deg; after 2 more steps in one
+    execute, states equal and the same tolerance on every lane below the
+    latitude where a step crosses half a zonal cell (``L_COURANT``),
+    lanes received in that execute's first migration and stepped on their
+    new rank among them (more than 0 required); after 12 and 18 h, states equal
+    and at most 1 % of lanes beyond 1e-4 deg (a grid-scale random field is
+    chaotic; one rank with the seeds nudged one ulp is printed as the
+    control); the rank files hold every particle once at each output time,
+    equal the gathered SoA at each half's end and the one-rank file at
+    every output time. Printed: particle-steps/s banded and on one rank,
+    lanes migrated a step, ``comm_stats()`` and the final gather's seconds,
+    the card's used memory before and after the ranks;
+22. the other modes over 4 ranks on the card, each against this process's
+    one-rank run: a ``ParticleMesh`` on path (a)'s field (1M particles, 1 h
+    at dt 60 s), ``XYTileDomain(tiles=(2, 2))`` on (a)'s grid with a
+    diagonal 0.5 m/s flow (256K; the closed form) and with a seeded smooth
+    field of up to 0.5 m/s (256K), each with K1 launched on every rank and
+    held there bit for bit against its plain version on the rank's largest
+    recorded call (its slab, its lanes), the config-5 grid banded by cell row (256K particles, 3 RK4
+    steps at dt 600 s; phase 10's rule) and phase 16's UGRID mesh under a
+    ``ParticleMesh`` (64K, 6 steps at dt 120 s).
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Field data and
@@ -160,6 +196,7 @@ import gc
 import io
 import json
 import os
+import pathlib
 import shutil
 import subprocess
 import sys
@@ -1819,6 +1856,13 @@ K_FIRST, K_SECOND, K_DT, K_HOURS, K_HOURS_AFTER = 2_000_000, 1_000_000, 900, 12,
 K_UNWRITTEN = "z"
 
 
+def land_mask(rng, Y, X):
+    """The synthetic land mask of (k): 64-cell blocks of a coarse random
+    field under its 30th percentile (the first draws of ``rng``)."""
+    coarse = rng.random((Y // 64 + 2, X // 64 + 2))
+    return np.kron(coarse < np.quantile(coarse, 0.3), np.ones((64, 64), bool))[:Y, :X]
+
+
 def copernicus_global_inputs(seed=9, shape=K_SHAPE):
     """``(fields, coords)`` shaped as the product: native ``uo``/``vo`` with
     their CF standard names on (time, depth, latitude, longitude), random
@@ -1829,8 +1873,7 @@ def copernicus_global_inputs(seed=9, shape=K_SHAPE):
 
     T, Z, Y, X = shape
     rng = np.random.default_rng(seed)
-    coarse = rng.random((Y // 64 + 2, X // 64 + 2))
-    land = np.kron(coarse < np.quantile(coarse, 0.3), np.ones((64, 64), bool))[:Y, :X]
+    land = land_mask(rng, Y, X)
 
     def velocity():
         a = rng.random(shape, dtype=np.float32)
@@ -2264,6 +2307,689 @@ def convert_phase(torch, tp, ds_k, fs_k):
     return l_mit, l_delft, l_k
 
 
+# ---------------------------------------------------------------------------
+# Phases 21-22: scale-out over torch.distributed, 4 ranks sharing the card
+# ---------------------------------------------------------------------------
+
+#: (l): (k)'s product banded over 4 ranks on one card (gloo; NCCL refuses two
+#: ranks on one device): 8M particles over ocean cells of the whole grid
+#: (lon within +-170, lat -75..85, 10 % within 2 rows of an interior band
+#: edge), RK4 at dt 15 min for 12 h with output every 3 h, a rebalance, 6 h
+#: more. The slab's 2 spare rows (``slab_headroom``) give the rebalance room.
+L = dict(shape=K_SHAPE, particles=8_000_000, ranks=4, halo=3, headroom=1.25, slab_headroom=2,
+         hours=12, hours_after=6, output_h=3, edge_share=0.1, edge_rows=2, dt=K_DT,
+         device="cuda", card=True)
+#: (l)'s lanes may end beyond the JAX banded tests' 1e-4 deg of the one-rank
+#: run at most this share: the field is random at the grid scale, so the
+#: trajectories are chaotic and a last-bit difference (a slab brackets
+#: latitude by search, the whole grid by its uniform spacing) grows; the
+#: first steps are held lane by lane, and a one-ulp nudge of the seeds on one
+#: rank is printed beside it as the control
+L_DIVERGED_SHARE = 0.01
+#: (l)'s lane-by-lane checks: after one step, and after ``L_CHECK_STEPS``
+#: (one step, then the rest in one execute, so that the lanes received in
+#: its first migrations are stepped on their new rank before the check)
+L_CHECK_STEPS = 3
+#: the check after ``L_CHECK_STEPS`` steps holds every lane where a step at
+#: the field's 1 m/s crosses less than this share of a zonal cell (|lat|
+#: below 78.8 deg at 1/12 deg and 15 min). Poleward the cells narrow to
+#: 0.8 km, a step crosses a whole cell of a field random at the grid scale,
+#: and a last-bit difference grows about tenfold a step: 2 of the 8M lanes,
+#: at 84.3-84.8 N and received by no rank, ended 1.2e-4 to 2.3e-4 deg from
+#: one rank after 3 steps, and the one-rank run from seeds nudged one ulp
+#: put 15 lanes past 1e-4 deg (H100 run). The first step holds every lane.
+L_COURANT = 0.5
+#: phase 22: (a)'s field under a particle mesh (1M) and (2, 2) tiles with
+#: diagonal flow and with a smooth seeded field (256K each), the config-5
+#: grid banded (256K, 3 steps at dt 600 s), phase 16's UGRID mesh under a
+#: particle mesh (64K, 6 steps at dt 120 s)
+P22 = dict(a_shape=(24, 1, 256, 1000), a_extent=(255e3, 999e3), mesh_lanes=1 << 20,
+           tile_lanes=1 << 18, diagonal=0.5, c5_shape=CONFIG5, c5_lanes=1 << 18, c5_steps=3,
+           ux_nx=200, ux_lanes=1 << 16, ux_steps=6, ranks=4, device="cuda", card=True)
+#: seconds a spawned rank may take for its phase
+RANK_DEADLINE_S = 900
+
+
+def ranks_dir() -> str:
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "ranks")
+
+
+def card_used_mib() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+
+
+def l_seeds(cfg, seed=21):
+    """(l)'s release: ocean cells of the grid, jittered within the cell; a
+    share of them within ``edge_rows`` rows of each interior band edge."""
+    T, Z, Y, X = cfg["shape"]
+    land = land_mask(np.random.default_rng(9), Y, X)[:-1, :-1]  # cells
+    lat = np.linspace(-80.0, 90.0, Y)
+    lon = -180.0 + np.arange(X) * (360.0 / X)
+    rows, cols = np.arange(Y - 1)[:, None], np.arange(X - 1)[None, :]
+    ok = (~land & (lat[:-1, None] >= -75.0) & (lat[1:, None] <= 85.0)
+          & (lon[None, :-1] >= -170.0) & (lon[None, 1:] <= 170.0))
+    band_rows = -(-(Y - 1) // cfg["ranks"])
+    edges = band_rows * np.arange(1, cfg["ranks"])
+    near = (np.abs(rows - edges[:, None, None]) <= cfg["edge_rows"]).any(0)
+    rng = np.random.default_rng(seed)
+    n = cfg["particles"]
+    n_edge = int(n * cfg["edge_share"])
+    pick = np.concatenate([rng.choice(np.flatnonzero(ok & near), n_edge),
+                           rng.choice(np.flatnonzero(ok), n - n_edge)])
+    r, c = np.divmod(pick, X - 1)
+    y = lat[r] + rng.random(n) * (lat[1] - lat[0])
+    x = lon[c] + rng.random(n) * (lon[1] - lon[0])
+    return dict(x=x, y=y, t=np.zeros(n))
+
+
+def l_fieldset(tp, cfg):
+    from parcels_tpu_torch import convert
+
+    fields, coords, _ = copernicus_global_inputs(shape=cfg["shape"])
+    return tp.FieldSet.from_sgrid_conventions(
+        convert.copernicusmarine_to_sgrid(fields=fields, coords=coords), device=cfg["device"])
+
+
+def l_state(pset):
+    o = np.argsort(pset.particle_id)
+    return {v: getattr(pset, v)[o] for v in ("particle_id", "x", "y", "state")}
+
+
+def l_execute(tp, pset, hours, cfg, output):
+    pf = tp.ParticleFile(output, outputdt=np.timedelta64(cfg["output_h"], "h"), mode="w")
+    try:
+        pset.execute(tp.AdvectionRK4, dt=np.timedelta64(cfg["dt"], "s"),
+                     runtime=np.timedelta64(hours, "h"), output_file=pf)
+    finally:
+        pf.close()
+    if not (np.isfinite(pset.x).all() and np.isfinite(pset.y).all()):
+        raise AssertionError("(l): non-finite positions")
+    if int((pset.state >= tp.StatusCode.Error).sum()):
+        raise AssertionError("(l): particles ended in an error state")
+    return pset.last_run_stats
+
+
+def l_reference(torch, tp, fs, cfg=L):
+    """(l) on one card, resident (no ranks): the same seeds, halves and
+    output; returns its states at 12 h and at the end, and its walls."""
+    out = os.path.join(ranks_dir(), "l_ref")
+    os.makedirs(out, exist_ok=True)
+    seeds = l_seeds(cfg)
+    step1, step, _ = l_steps(torch, tp, fs, seeds, cfg)
+    # the control: the seeds' latitudes one f32 ulp north, on one rank
+    nudged = dict(seeds, y=np.nextafter(seeds["y"].astype(np.float32), np.float32(np.inf)))
+    _, step_nudged, _ = l_steps(torch, tp, fs, nudged, cfg)
+    pset = tp.ParticleSet(fs, **seeds)
+    s1 = l_execute(tp, pset, cfg["hours"], cfg, os.path.join(out, "first.parquet"))
+    mid = l_state(pset)
+    s2 = l_execute(tp, pset, cfg["hours_after"], cfg, os.path.join(out, "second.parquet"))
+    end = l_state(pset)
+    del pset
+    pset = tp.ParticleSet(fs, **nudged)
+    pset.execute(tp.AdvectionRK4, dt=np.timedelta64(cfg["dt"], "s"),
+                 runtime=np.timedelta64(cfg["hours"], "h"))
+    control = diverged("(l) one rank, seeds nudged one ulp, at 12 h", l_state(pset), mid)
+    del pset
+    if cfg["card"]:
+        torch.cuda.empty_cache()
+    log(f"[l one rank] {cfg['particles']} particles, resident on one card: first "
+        f"{cfg['hours']} h particle_steps_per_s {s1['particle_steps_per_s']} wall_s "
+        f"{s1['wall_s']}; {cfg['hours_after']} h more particle_steps_per_s "
+        f"{s2['particle_steps_per_s']} wall_s {s2['wall_s']}; the seeds nudged one ulp: "
+        f"{control}")
+    return dict(step1=step1, step=step, step_nudged=step_nudged, mid=mid, end=end,
+                rate1=s1["particle_steps_per_s"],
+                rate2=s2["particle_steps_per_s"], control=control)
+
+
+def l_steps(torch, tp, fs, seeds, cfg, domain=None):
+    """(l)'s release after one step and after ``L_CHECK_STEPS``, gathered by
+    particle id; on a domain also the ids each migration of the later
+    execute brought to this rank (``received_ids``)."""
+    pset = tp.ParticleSet(fs, **seeds)
+    if domain is not None:
+        from parcels_tpu_torch.parallel import shard_particleset
+
+        shard_particleset(pset, domain)
+
+    def run(steps):
+        pset.execute(tp.AdvectionRK4, dt=np.timedelta64(cfg["dt"], "s"),
+                     runtime=np.timedelta64(cfg["dt"] * steps, "s"))
+
+    run(1)
+    one = l_state(pset)
+    received, restore = received_ids(torch) if domain is not None else ([], lambda: None)
+    try:
+        run(L_CHECK_STEPS - 1)
+    finally:
+        restore()
+    return one, l_state(pset), received
+
+
+def l_resolved(y, cfg):
+    """Lanes at latitudes where a step at 1 m/s crosses less than
+    ``L_COURANT`` of a zonal cell."""
+    cell_eq = np.deg2rad(360.0 / cfg["shape"][3]) * 6371e3
+    return np.cos(np.deg2rad(y)) * cell_eq * L_COURANT > cfg["dt"] * 1.0
+
+
+def received_ids(torch):
+    """Record the particle ids this rank receives in each step's migration:
+    the lanes active after the exchange that were not before it. Returns
+    (steps, restore), one array of ids a step."""
+    from parcels_tpu_torch.parallel import domain as dm
+
+    steps = []
+    inner = dm._exchange
+
+    def recorded(pd, mover, dest, cap, dom, on_send=None):
+        before = pd["particle_id"][pd["_active"]]
+        out = inner(pd, mover, dest, cap, dom, on_send=on_send)
+        after = out[0]["particle_id"][out[0]["_active"]]
+        steps.append(after[~torch.isin(after, before)].cpu().numpy())
+        return out
+
+    dm._exchange = recorded
+    return steps, lambda: setattr(dm, "_exchange", inner)
+
+
+def diverged(what, got, ref, tol=1e-4):
+    """States equal and ids kept; the share of lanes beyond ``tol`` deg and
+    the largest difference (a summary for the log)."""
+    np.testing.assert_array_equal(got["particle_id"], ref["particle_id"], err_msg=what)
+    np.testing.assert_array_equal(got["state"], ref["state"], err_msg=f"{what}: states")
+    d = np.maximum(np.abs(got["x"] - ref["x"]), np.abs(got["y"] - ref["y"]))
+    return dict(share_beyond=float((d > tol + 1e-6 * np.abs(ref["x"])).mean()),
+                max_deg=float(d.max()), median_deg=float(np.median(d)),
+                bits=bool(np.array_equal(got["x"], ref["x"]) and np.array_equal(got["y"], ref["y"])))
+
+
+def k2_overflow_share(seen):
+    """Share of the last sampled batch's lanes outside their chunk's slab (the
+    fix-up gather's lanes) under the plan K2 would run."""
+    from parcels_tpu_torch.ops import binned_sample as bs
+
+    if seen["last"] is None:
+        return None
+    data, gpos = seen["last"]
+    plan = bs._build_plan(tuple(data.shape), gpos)
+    return plan["count"] / int(gpos["X"]["index"].shape[0])
+
+
+def l_rank(cfg):
+    """Phase 21 on one rank: build (l)'s field, keep this band's slab, run
+    the lane-by-lane check's steps (recording the lanes received) and both
+    halves; rank 0 also holds K2 bit for bit against its plain version on
+    one banded stage and saves the gathered states."""
+    import torch
+    import torch.distributed as dist
+
+    import parcels_tpu_torch as tp
+    from parcels_tpu_torch.parallel import YBandDomain, shard_particleset
+
+    rank = dist.get_rank()
+    card = cfg["card"]
+    t0 = time.perf_counter()
+    fs = l_fieldset(tp, cfg)
+    dom = YBandDomain(fs, n_bands=cfg["ranks"], halo=cfg["halo"], headroom=cfg["headroom"],
+                      slab_headroom=cfg["slab_headroom"])
+    base = torch.cuda.memory_allocated() if card else 0
+    dom.stacked_farrays()
+    rise = (torch.cuda.memory_allocated() - base) if card else 0
+    report = sum(fs.memory_report(bands=cfg["ranks"])["fields"].values())
+    ingest_s = time.perf_counter() - t0
+    pset = tp.ParticleSet(fs, **l_seeds(cfg))
+    shard_particleset(pset, dom)
+    if card:
+        torch.cuda.reset_peak_memory_stats()
+    out = {"rank": rank, "ingest_s": ingest_s, "rise": rise, "report_fields": report}
+    step1, step, received = l_steps(torch, tp, fs, l_seeds(cfg), cfg, dom)
+    # the lanes received before the execute's last step were stepped on this rank
+    out["received"] = [len(r) for r in received]
+    out["received_stepped"] = np.concatenate(received[:-1] or [np.zeros(0, np.int64)])
+    out["received_last"] = received[-1] if received else np.zeros(0, np.int64)
+    if rank == 0:
+        np.savez(os.path.join(ranks_dir(), "l_step1.npz"), **step1)
+        np.savez(os.path.join(ranks_dir(), "l_step.npz"), **step)
+    names = ("first", "second")
+    for half, hours in zip(names, (cfg["hours"], cfg["hours_after"])):
+        if half == "second":
+            out["edges"] = dom.rebalance(pset.y, pset.x).tolist()
+        out[f"mode_{half}"] = dom.migration_mode
+        zero_counts()
+        seen, restore = binned_calls()
+        try:
+            stats = l_execute(tp, pset, hours, cfg, os.path.join(ranks_dir(), f"l_{half}.parquet"))
+        finally:
+            restore()
+        out[f"launches_{half}"] = counts()
+        out[f"stats_{half}"] = stats
+        out[f"overflow_{half}"] = k2_overflow_share(seen)
+        if rank == 0 and card:
+            out[f"k2_{half}"] = k2_on_path(torch, f"(l) {half} half, rank 0", seen)
+        del seen
+        if rank == 0:
+            np.savez(os.path.join(ranks_dir(), f"l_{half}.npz"), **l_state(pset))
+    out["peak"] = torch.cuda.max_memory_allocated() if card else 0
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def spawn_phase(function, cfg):
+    """Run this script's ``function(cfg)`` on ``cfg['ranks']`` spawned gloo
+    ranks (``parallel._ranks.RankPool``, every rank on ``cuda:0``); returns
+    their results in rank order. A rank that fails or passes the deadline
+    fails the phase; every rank is stopped before this returns or raises."""
+    from parcels_tpu_torch.parallel._ranks import RankPool
+
+    pool = RankPool(cfg["ranks"], ranks_dir(),
+                    threads=max(1, (os.cpu_count() or 4) // cfg["ranks"]),  # a shared host
+                    collective_timeout_s=RANK_DEADLINE_S,
+                    cuda_device=0 if cfg["card"] else None, grace_s=30.0)
+    try:
+        return pool.run(pathlib.Path(__file__).stem, function, timeout=RANK_DEADLINE_S, cfg=cfg)
+    finally:
+        pool.close()
+
+
+def rows_at_times(paths):
+    """(ids, x, y) of the Parquet files ``paths`` by output time, each sorted
+    by particle id (pyarrow and numpy)."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    table = pa.concat_tables([pq.read_table(p, columns=["particle_id", "t", "x", "y"])
+                              for p in paths])
+    cols = {k: table.column(k).to_numpy() for k in ("particle_id", "t", "x", "y")}
+    order = np.lexsort((cols["particle_id"], cols["t"]))
+    cols = {k: v[order] for k, v in cols.items()}
+    times, starts = np.unique(cols["t"], return_index=True)
+    bounds = list(starts) + [cols["t"].size]
+    return {float(t): tuple(cols[k][bounds[i]:bounds[i + 1]] for k in ("particle_id", "x", "y"))
+            for i, t in enumerate(times)}
+
+
+def lanes_off(what, got, ref, received, received_last, cfg, held, rtol=1e-6, atol=1e-4):
+    """Log the ``held`` lanes of ``got`` beyond the tolerance of the one-rank
+    run ``ref['step']``: their seeds, both positions, where they sit against
+    the band edges, whether they were received in a migration, and the
+    one-rank run from seeds nudged one ulp on the same lanes."""
+    r = ref["step"]
+    off = np.flatnonzero(held & np.any([np.abs(got[v] - r[v]) > atol + rtol * np.abs(r[v])
+                                        for v in ("x", "y")], axis=0))
+    if off.size == 0:
+        return
+    seeds = l_seeds(cfg)
+    lat = np.linspace(-80.0, 90.0, cfg["shape"][2])
+    band_rows = -(-(cfg["shape"][2] - 1) // cfg["ranks"])
+    edges = lat[band_rows * np.arange(1, cfg["ranks"])]
+    nudged = ref["step_nudged"]
+    for i in off[:20]:
+        pid = int(got["particle_id"][i])
+        log(f"[{what} off] id {pid}: seed ({seeds['x'][pid]:.6f}, {seeds['y'][pid]:.6f}); "
+            f"banded ({got['x'][i]:.6f}, {got['y'][i]:.6f}) one rank ({r['x'][i]:.6f}, "
+            f"{r['y'][i]:.6f}) nudged one rank ({nudged['x'][i]:.6f}, {nudged['y'][i]:.6f}); "
+            f"deg to the nearest band edge {float(np.abs(edges - r['y'][i]).min()):.4f}; "
+            f"received and stepped {pid in set(received.tolist())}, received at the last "
+            f"step {pid in set(received_last.tolist())}")
+    log(f"[{what} off] {off.size} lanes; the nudged one-rank run beyond the same tolerance on "
+        f"{int(np.any([np.abs(nudged[v] - r[v]) > atol + rtol * np.abs(r[v]) for v in ('x', 'y')], axis=0).sum())} lanes")
+
+
+def banded_against(what, got, ref, rtol=1e-6, atol=1e-4):
+    """States equal and ids kept; positions within the JAX banded tests'
+    tolerance (rtol 1e-6, atol 1e-4 on degrees); returns (max, bits)."""
+    np.testing.assert_array_equal(got["particle_id"], ref["particle_id"], err_msg=what)
+    np.testing.assert_array_equal(got["state"], ref["state"], err_msg=f"{what}: states")
+    for v in ("x", "y"):
+        np.testing.assert_allclose(got[v], ref[v], rtol=rtol, atol=atol, err_msg=f"{what}: {v}")
+    dmax = max(float(np.abs(got[v] - ref[v]).max()) for v in ("x", "y"))
+    return dmax, all(np.array_equal(got[v], ref[v]) for v in ("x", "y"))
+
+
+def l_phase(torch, tp, ref, cfg=L):
+    """Phase 21: (l) banded over 4 ranks against ``ref``, (l) on one card
+    (``l_reference``, run by the caller, which then frees its field)."""
+    from parcels_tpu_torch._core.particlefile import _rank_files
+
+    gc.collect()
+    if cfg["card"]:
+        torch.cuda.empty_cache()
+        log(f"[l] card memory used before the ranks start: {card_used_mib()} (this process "
+            f"{torch.cuda.memory_allocated()} B allocated)")
+    t1 = time.perf_counter()
+    outs = spawn_phase("l_rank", cfg)
+    spawn_s = time.perf_counter() - t1
+    if cfg["card"]:
+        log(f"[l] card memory used after the ranks ended: {card_used_mib()}")
+    steps = {"first": cfg["hours"] * 3600 // cfg["dt"],
+             "second": cfg["hours_after"] * 3600 // cfg["dt"]}
+    expect_gap = (2 * cfg["halo"] + cfg["slab_headroom"]) / -(-cfg["shape"][2] // cfg["ranks"])
+    for o in outs:
+        gap = o["rise"] / o["report_fields"] - 1 if o["rise"] else float("nan")
+        log(f"[l rank {o['rank']}] ingest and slab {o['ingest_s']:.1f} s; slab rise {o['rise']} B "
+            f"against memory_report(bands={cfg['ranks']}) fields {o['report_fields']} B "
+            f"({gap:+.4%}; halo and spare rows {expect_gap:.4%}); peak allocated {o['peak']} B; "
+            f"wall {o['wall_s']:.1f} s; K2 overflow share {o['overflow_first']} / "
+            f"{o['overflow_second']}; launches {o['launches_first']} / {o['launches_second']}")
+        if cfg["card"]:
+            if not 0 <= gap <= 0.02:
+                raise AssertionError(f"(l) rank {o['rank']}: slab rise {gap:+.4%} off the report")
+            for half in ("first", "second"):
+                if o[f"launches_{half}"]["slab_sample"] == 0:
+                    raise AssertionError(f"(l) rank {o['rank']}: K2 not launched in the {half} half")
+    s = {half: outs[0][f"stats_{half}"] for half in ("first", "second")}
+    for half in ("first", "second"):
+        st = s[half]
+        log(f"[e2e l {half}] {cfg['ranks']} ranks, {st['particles']} particles, {steps[half]} RK4 "
+            f"steps: particle_steps_per_s {st['particle_steps_per_s']} wall_s {st['wall_s']} "
+            f"(one rank {ref['rate1' if half == 'first' else 'rate2']}); migration "
+            f"{outs[0]['mode_' + half]}, migrated lanes {st['migrated_lanes']} "
+            f"({st['migrated_per_step']:.1f} a step); rank 0 comm {st['comm']}, of which the "
+            f"final gather {st['gather_s']} s")
+        if "k2_" + half in outs[0]:
+            log(f"[l K2 {half}] {outs[0]['k2_' + half]}")
+    for half in ("first", "second"):
+        if s[half]["migrated_lanes"] <= 0:
+            raise AssertionError(f"(l): no lane migrated in the {half} half")
+    if outs[0]["mode_first"] != "neighbor" or outs[0]["mode_second"] != "all2all":
+        raise AssertionError(f"(l): migration {outs[0]['mode_first']} then "
+                             f"{outs[0]['mode_second']}")
+    half_got = {h: dict(np.load(os.path.join(ranks_dir(), f"l_{h}.npz")))
+                for h in ("step1", "step", "first", "second")}
+    d1, bits1 = banded_against("(l) one step", half_got["step1"], ref["step1"])
+    what = f"(l) {L_CHECK_STEPS} steps"
+    received = np.concatenate([o["received_stepped"] for o in outs])
+    received_last = np.concatenate([o["received_last"] for o in outs])
+    got3, ref3 = half_got["step"], ref["step"]
+    np.testing.assert_array_equal(got3["particle_id"], ref3["particle_id"], err_msg=what)
+    np.testing.assert_array_equal(got3["state"], ref3["state"], err_msg=f"{what}: states")
+    held = l_resolved(ref3["y"], cfg)
+    lanes_off(what, got3, ref, received, received_last, cfg, held)
+    d0, bits0 = banded_against(f"{what}, lanes held", {k: v[held] for k, v in got3.items()},
+                               {k: v[held] for k, v in ref3.items()})
+    polar = diverged(f"{what}, poleward lanes", {k: v[~held] for k, v in got3.items()},
+                     {k: v[~held] for k, v in ref3.items()}) if not held.all() else "none"
+    mine = np.isin(got3["particle_id"], received) & held
+    if not mine.any():
+        raise AssertionError(f"{what}: no lane was received and then stepped on its new rank")
+    d_recv = max(float(np.abs(got3[v][mine] - ref3[v][mine]).max()) for v in ("x", "y"))
+    div = {h: diverged(f"(l) {h}", half_got[h], ref[k])
+           for h, k in (("first", "mid"), ("second", "end"))}
+    for h, dv in div.items():
+        if dv["share_beyond"] > L_DIVERGED_SHARE:
+            raise AssertionError(f"(l) {h}: {dv['share_beyond']:.4%} of lanes beyond 1e-4 deg "
+                                 f"of one rank (control {ref['control']})")
+    # the union of the rank files: every particle once at each output time, the
+    # gathered SoA at the last one, the one-rank run's file at every one
+    worst = 0.0
+    for half, state in (("first", half_got["first"]), ("second", half_got["second"])):
+        parts = _rank_files(pathlib.Path(ranks_dir()) / f"l_{half}.parquet")
+        union = rows_at_times(parts)
+        one = rows_at_times([os.path.join(ranks_dir(), "l_ref", f"{half}.parquet")])
+        if len(parts) != cfg["ranks"] or sorted(union) != sorted(one):
+            raise AssertionError(f"(l) {half}: {len(parts)} rank files, times {sorted(union)}")
+        for t, (ids, x, y) in union.items():
+            rid, rx, ry = one[t]
+            np.testing.assert_array_equal(ids, rid, err_msg=f"(l) {half} at {t}: ids")
+            d = np.maximum(np.abs(x - rx), np.abs(y - ry))
+            if float((d > 1e-4 + 1e-6 * np.abs(rx)).mean()) > L_DIVERGED_SHARE:
+                raise AssertionError(f"(l) {half} at {t}: the rank files and the one-rank "
+                                     "file differ beyond the divergence share")
+            worst = max(worst, float(d.max()))
+        ids, x, y = union[max(union)]
+        act = state["particle_id"]
+        if not (np.array_equal(ids, act) and np.array_equal(x, state["x"].astype(x.dtype))
+                and np.array_equal(y, state["y"].astype(y.dtype))):
+            raise AssertionError(f"(l) {half}: the rank files at the last output time are not "
+                                 "the gathered SoA")
+    for o in outs:
+        for half in ("first", "second"):
+            os.remove(os.path.join(ranks_dir(), f"l_{half}.{o['rank']}.parquet"))
+    shutil.rmtree(os.path.join(ranks_dir(), "l_ref"), ignore_errors=True)
+    for h in ("step1", "step", "first", "second"):
+        os.remove(os.path.join(ranks_dir(), f"l_{h}.npz"))
+    log(f"[l] against one rank: after one step states equal and positions within rtol 1e-6, "
+        f"atol 1e-4 deg on every lane (max {d1:.3g} deg, bit for bit: {bits1}); after "
+        f"{L_CHECK_STEPS} steps states equal, and within that tolerance on the {int(held.sum())} "
+        f"lanes below |lat| where a step crosses {L_COURANT} of a zonal cell (max {d0:.3g} deg, "
+        f"bit for bit: {bits0}), {int(mine.sum())} of them received in the second execute's "
+        f"first migration and stepped on their new rank (max {d_recv:.3g} deg; received a step "
+        f"by rank {[o['received'] for o in outs]}); the {int((~held).sum())} lanes poleward "
+        f"{polar}; states "
+        f"equal at 12 h ({div['first']}) and at the end ({div['second']}); one rank with the "
+        f"seeds nudged one ulp: {ref['control']}; the rank files: every output time once, the "
+        f"gathered SoA at each half's end, the one-rank file within {worst:.3g} deg; "
+        f"rebalanced edges {outs[0]['edges']}; ranks {spawn_s:.1f} s")
+    return dict(outs=outs, ref=ref, step1=(d1, bits1), step=(d0, bits0), div=div)
+
+
+def span_seeds(shape, extent, n, seed):
+    """Seeds over the inner 80 % of a flat grid of ``extent``, as ``run_path``'s."""
+    rng = np.random.default_rng(seed)
+    lat = np.linspace(0.0, extent[0], shape[2])
+    lon = np.linspace(0.0, extent[1], shape[3])
+    span = lambda a: (a[0] + 0.1 * (a[-1] - a[0]), a[-1] - 0.1 * (a[-1] - a[0]))  # noqa: E731
+    return dict(x=rng.uniform(*span(lon), n), y=rng.uniform(*span(lat), n), t=np.zeros(n))
+
+
+def smooth_dataset(shape, extent, seed, amp=0.5):
+    """A flat U/V dataset of four seeded plane waves a component
+    (wavelengths 40-200 km, phases drifting over the levels), at most
+    ``amp`` m/s: neighbouring cells differ by up to 0.08 m/s, and a
+    last-bit difference between two runs does not grow over an hour."""
+    rng = np.random.default_rng(seed)
+    T, Z, Y, X = shape
+    y = np.linspace(0.0, extent[0], Y)[:, None]
+    x = np.linspace(0.0, extent[1], X)[None, :]
+    data = {}
+    for c in ("U", "V"):
+        k = 2 * np.pi / rng.uniform(40e3, 200e3, (4, 2)) * rng.choice([-1.0, 1.0], (4, 2))
+        phase, drift = rng.uniform(0.0, 2 * np.pi, 4), rng.uniform(0.05, 0.3, 4)
+        a = np.empty(shape, np.float32)
+        for t in range(T):
+            a[t] = (amp / 4) * sum(np.sin(k[m, 0] * x + k[m, 1] * y + phase[m] + drift[m] * t)
+                                   for m in range(4))
+        data[c] = a
+    return flat_dataset_of(data, extent)
+
+
+def p22_inputs(tp, cfg, which):
+    """The fieldset and seeds of one phase-22 run, made from seeds as the
+    parent and every rank make them."""
+    dev = cfg["device"]
+    if which in P22_K1_RUNS:
+        if which == "mesh":
+            ds = flat_dataset(cfg["a_shape"], extent=cfg["a_extent"], seed=3)
+            n = cfg["mesh_lanes"]
+        elif which == "tiles":
+            u = np.full(cfg["a_shape"], cfg["diagonal"], np.float32)
+            ds = flat_dataset_of({"U": u, "V": u.copy()}, cfg["a_extent"])
+            n = cfg["tile_lanes"]
+        else:
+            ds = smooth_dataset(cfg["a_shape"], cfg["a_extent"], seed=6)
+            n = cfg["tile_lanes"]
+        fs = tp.FieldSet.from_sgrid_conventions(ds, mesh="flat", device=dev)
+        return (fs, span_seeds(cfg["a_shape"], cfg["a_extent"], n, 4), tp.AdvectionRK4, 60,
+                60)
+    if which == "c5":
+        fs = config5_fieldset(None, tp, dev, shape=cfg["c5_shape"])
+        rng = np.random.default_rng(3)
+        for name in ("U", "V"):
+            a = rng.random(fs.fields[name].data.shape, dtype=np.float32)
+            a *= np.float32(0.6)
+            a -= np.float32(0.3)
+            fs.fields[name].data = a
+        fs._invalidate_caches()
+        return fs, config5_seeds(cfg["c5_lanes"], seed=5), tp.AdvectionRK4, 600, cfg["c5_steps"]
+    from parcels_tpu_torch.datasets import delaunay_flow_dataset
+
+    ds = delaunay_flow_dataset(**{**UX_MESH, "nx": cfg["ux_nx"], "ny": cfg["ux_nx"]})
+    fs = tp.FieldSet.from_ugrid_conventions(ds, mesh="flat", device=dev)
+    return (fs, ux_seeds(cfg["ux_lanes"], UX_MESH["extent"], seed=4), tp.AdvectionRK4, 120,
+            cfg["ux_steps"])
+
+
+def p22_run(tp, cfg, which, sharder=None):
+    fs, seeds, kernel, dt, steps = p22_inputs(tp, cfg, which)
+    pset = tp.ParticleSet(fs, **seeds)
+    if sharder is not None:
+        from parcels_tpu_torch.parallel import shard_particleset
+
+        shard_particleset(pset, sharder(fs))
+    zero_counts()
+    seen, restore = fold_calls() if which in P22_K1_RUNS and cfg["card"] else (None, None)
+    try:
+        pset.execute(kernel, dt=np.timedelta64(dt, "s"), runtime=np.timedelta64(dt * steps, "s"))
+    finally:
+        if restore is not None:
+            restore()
+    launches = counts()
+    if int((pset.state >= tp.StatusCode.Error).sum()):
+        raise AssertionError(f"phase 22 {which}: particles ended in an error state")
+    state = l_state(pset)
+    state["z"] = pset.z[np.argsort(pset.particle_id)]
+    k1 = k1_on_path(f"phase 22 {which}", seen) if seen is not None else None
+    return state, launches, pset.last_run_stats, k1
+
+
+def fold_calls():
+    """Record the interpolator's calls that K1 serves (``fits_fast_path``):
+    each (field shape, lane count) with its number of calls, and the (data,
+    gpos) of the last call with the most lanes, for ``k1_on_path``. Returns
+    (seen, restore)."""
+    from parcels_tpu_torch.interpolators import xinterp
+    from parcels_tpu_torch.ops.interp_kernels import fits_fast_path
+
+    seen = {"calls": {}, "last": None}
+    inner = xinterp._linear_sample
+
+    def recorded(data, gpos, *args, **kwargs):
+        if fits_fast_path(tuple(data.shape)):
+            key = (tuple(data.shape), int(gpos["X"]["index"].shape[0]))
+            seen["calls"][key] = seen["calls"].get(key, 0) + 1
+            if seen["last"] is None or key[1] >= seen["last"][1]["X"]["index"].shape[0]:
+                seen["last"] = (data, gpos)
+        return inner(data, gpos, *args, **kwargs)
+
+    xinterp._linear_sample = recorded
+    return seen, lambda: setattr(xinterp, "_linear_sample", inner)
+
+
+def k1_on_path(what, seen):
+    """K1 against its plain version, bit for bit, on the field (a rank's
+    slab) and lanes of the last recorded call with the most lanes."""
+    import torch
+
+    from parcels_tpu_torch.ops import interp_kernels as ik
+
+    if seen["last"] is None:
+        raise AssertionError(f"{what}: K1 was never called")
+    data, gpos = seen["last"]
+    pos = ik.positions_from_gpos(gpos, tuple(data.shape))
+    out = ik.fold_sample(data, *pos)
+    ref = ik.fold_sample_plain(data, *pos)
+    err = float((out - ref).abs().max())
+    if not same_bits(torch, out, ref):
+        raise AssertionError(f"{what}: K1 is not bit for bit equal to its plain version at "
+                             f"{tuple(data.shape)}, {pos[0].shape[0]} lanes: max abs err {err}")
+    return (f"K1 at {tuple(data.shape)} on {pos[0].shape[0]} lanes bit for bit equal to its "
+            f"plain version (max abs err {err:.3g}); calls by (shape, lanes): {seen['calls']}")
+
+
+P22_K1_RUNS = ("mesh", "tiles", "tiles_smooth")
+P22_RUNS = (*P22_K1_RUNS, "c5", "ux")
+
+
+def p22_rank(cfg):
+    import torch
+    import torch.distributed as dist
+
+    import parcels_tpu_torch as tp
+    from parcels_tpu_torch.parallel import ParticleMesh, XYTileDomain, YBandDomain
+
+    rank = dist.get_rank()
+    sharders = {
+        "mesh": lambda fs: ParticleMesh(n_devices=cfg["ranks"], devices=cfg["device"]),
+        "tiles": lambda fs: XYTileDomain(fs, tiles=(2, 2), halo=2),
+        "tiles_smooth": lambda fs: XYTileDomain(fs, tiles=(2, 2), halo=2),
+        "c5": lambda fs: YBandDomain(fs, n_bands=cfg["ranks"], halo=3),
+        "ux": lambda fs: ParticleMesh(n_devices=cfg["ranks"], devices=cfg["device"]),
+    }
+    out = {"rank": rank}
+    for which in P22_RUNS:
+        t0 = time.perf_counter()
+        if cfg["card"]:
+            torch.cuda.reset_peak_memory_stats()
+        state, launches, stats, k1 = p22_run(tp, cfg, which, sharders[which])
+        if rank == 0:
+            np.savez(os.path.join(ranks_dir(), f"p22_{which}.npz"), **state)
+        out[which] = dict(launches=launches, stats=stats, wall_s=time.perf_counter() - t0,
+                          peak=torch.cuda.max_memory_allocated() if cfg["card"] else 0, k1=k1)
+        if cfg["card"]:
+            torch.cuda.empty_cache()
+    return out
+
+
+def p22_phase(torch, tp, cfg=P22):
+    """Phase 22: the particle mesh, tile and config-5 band modes and the
+    UGRID mesh under a particle mesh, each against its one-rank run."""
+    t0 = time.perf_counter()
+    outs = spawn_phase("p22_rank", cfg)
+    spawn_s = time.perf_counter() - t0
+    results = {}
+    for which in P22_RUNS:
+        ref, ref_launches, ref_stats, ref_k1 = p22_run(tp, cfg, which)
+        got = dict(np.load(os.path.join(ranks_dir(), f"p22_{which}.npz")))
+        os.remove(os.path.join(ranks_dir(), f"p22_{which}.npz"))
+        if cfg["card"]:
+            torch.cuda.empty_cache()
+        np.testing.assert_array_equal(got["particle_id"], ref["particle_id"])
+        if which == "c5":
+            # phase 10's rule: a tolerance-edge lane (on the +-2e-4 in-cell
+            # edge) may pick the neighbouring cell; at most 0.1 % of lanes
+            d = np.maximum(np.abs(got["x"] - ref["x"]), np.abs(got["y"] - ref["y"]))
+            near = d <= 1e-4
+            over = float((~near).mean())
+            if over > 1e-3 or not np.array_equal(got["state"][near], ref["state"][near]):
+                raise AssertionError(f"phase 22 c5: {over:.4%} of lanes beyond 1e-4 deg")
+            verdict = f"share beyond 1e-4 deg {over:.5f}, max {float(d.max()):.3g} deg"
+        else:
+            np.testing.assert_array_equal(got["state"], ref["state"])
+            atol = 1e-4 if which == "ux" else 1e-3
+            for v in ("x", "y", "z"):
+                np.testing.assert_allclose(got[v], ref[v], rtol=1e-6, atol=atol,
+                                           err_msg=f"phase 22 {which}: {v}")
+            bits = all(np.array_equal(got[v], ref[v]) for v in ("x", "y", "z"))
+            dmax = max(float(np.abs(got[v] - ref[v]).max()) for v in ("x", "y", "z"))
+            verdict = f"states equal, max |position difference| {dmax:.3g} (bit for bit: {bits})"
+        if which == "tiles":
+            seeds = span_seeds(cfg["a_shape"], cfg["a_extent"], cfg["tile_lanes"], 4)
+            move = cfg["diagonal"] * 3600.0
+            for v in ("x", "y"):
+                np.testing.assert_allclose(got[v], seeds[v] + move, rtol=1e-5)
+            verdict += f"; the closed form (+{move:.0f} m on x and y) within rtol 1e-5"
+        per_rank = [o[which]["launches"] for o in outs]
+        st = outs[0][which]["stats"]
+        results[which] = dict(per_rank=per_rank, ref_launches=ref_launches)
+        log(f"[e2e p22 {which}] {cfg['ranks']} ranks: particle_steps_per_s "
+            f"{st['particle_steps_per_s']} wall_s {st['wall_s']} (one rank "
+            f"{ref_stats['particle_steps_per_s']}); migrated {st.get('migrated_lanes', 0)}; "
+            f"per-rank launches {per_rank}, peak allocated "
+            f"{[o[which]['peak'] for o in outs]} B; against one rank: {verdict}")
+        if cfg["card"] and which in P22_K1_RUNS:
+            if any(p["fold_sample"] == 0 for p in per_rank):
+                raise AssertionError(f"phase 22 {which}: K1 not launched on every rank")
+            for o in outs:
+                log(f"[p22 {which} K1 rank {o['rank']}] {o[which]['k1']}")
+            log(f"[p22 {which} K1 one rank] {ref_k1}")
+        if which in ("tiles", "tiles_smooth") and st["migrated_lanes"] <= 0:
+            raise AssertionError(f"phase 22 {which}: no lane migrated")
+    log(f"[p22] ranks {spawn_s:.1f} s, one-rank runs {time.perf_counter() - t0 - spawn_s:.1f} s")
+    return results
+
+
 def mark(t_start, done: str):
     log(f"[time] {done} done at {time.perf_counter() - t_start:.1f} s")
 
@@ -2476,10 +3202,24 @@ def main() -> int:
     l_trace = trace_chunk(torch, tp, fs_a)
     ds_k, fs_k, kr = k_phase(torch, tp)
     l_mit, l_delft, l_kc = convert_phase(torch, tp, ds_k, fs_k)
-    del ds_k, fs_k
-    torch.cuda.empty_cache()
-
     mark(t_start, "phases 19-20")
+    # 21-22: scale-out over 4 ranks sharing the card. (l)'s one-rank reference
+    # runs on (k)'s field, which is then freed before the ranks start
+    l_ref = l_reference(torch, tp, fs_k)
+    log(f"[l] card memory used before this process frees the earlier phases' tensors: "
+        f"{card_used_mib()} ({torch.cuda.memory_allocated()} B allocated here)")
+    # the 4 ranks share the card: drop what the earlier phases left on it
+    del ds_k, fs_k, ds_a, fs_a, ds_b, fs_b, fs_cpu, runs, a, b, fs_e, pset, fs_p
+    gc.collect()
+    torch.cuda.empty_cache()
+    l21 = l_phase(torch, tp, l_ref)
+    del l_ref
+    mark(t_start, "phase 21")
+    p22 = p22_phase(torch, tp)
+    mark(t_start, "phase 22")
+
+    def by_rank(runs, half, kernel):
+        return sum(o[f"launches_{half}"][kernel] for o in runs)
     kernels = [
         dict(name="fold_sample", route="cuda", source="parcels_tpu_torch/csrc/fold_sample.cu",
              replaces="parcels_tpu/ops/interp_kernels.py:77", launches=la["fold_sample"],
@@ -2487,7 +3227,13 @@ def main() -> int:
                                "config3": l12, "slip": l14,
                                "stream_j1": j1r["launches"]["fold_sample"], "trace_a": l_trace,
                                "mitgcm_card_vs_cpu": l_mit["fold_sample"],
-                               "delft3d_card_vs_cpu": l_delft["fold_sample"]},
+                               "delft3d_card_vs_cpu": l_delft["fold_sample"],
+                               "p22_mesh_4_ranks": sum(r["fold_sample"]
+                                                       for r in p22["mesh"]["per_rank"]),
+                               "p22_tiles_4_ranks": sum(r["fold_sample"]
+                                                        for r in p22["tiles"]["per_rank"]),
+                               "p22_tiles_smooth_4_ranks": sum(
+                                   r["fold_sample"] for r in p22["tiles_smooth"]["per_rank"])},
              **k1),
         dict(name="slab_sample", route="cuda", source="parcels_tpu_torch/csrc/slab_sample.cu",
              replaces="parcels_tpu/ops/binned_sample.py:489", launches=lb["slab_sample"],
@@ -2498,7 +3244,10 @@ def main() -> int:
                                "k_fresh": kr["fresh"]["slab_sample"],
                                "mitgcm_card_vs_cpu": l_mit["slab_sample"],
                                "delft3d_card_vs_cpu": l_delft["slab_sample"],
-                               "k_card_vs_cpu": l_kc["slab_sample"]}, **k2),
+                               "k_card_vs_cpu": l_kc["slab_sample"],
+                               "l_first_4_ranks": by_rank(l21["outs"], "first", "slab_sample"),
+                               "l_second_4_ranks": by_rank(l21["outs"], "second",
+                                                           "slab_sample")}, **k2),
         dict(name="fused_rk4", route="cuda", source="parcels_tpu_torch/csrc/fused_rk4.cu",
              replaces="scripts/bench_fused_rk4.py:134", launches=k9["launches"],
              launches_by_path={"k3_path": k9["launches"]}, **k3),

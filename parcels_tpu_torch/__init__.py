@@ -15,8 +15,9 @@ at a time by ``FieldSet.set_time_window``), ``describe``/``memory_report``,
 ``profiling`` (``torch.profiler``) and the generated ``tutorial`` and remote
 datasets (no download). Field sampling runs through hand-written CUDA
 kernels for Hopper (``ops/``) on the card, and through their plain PyTorch
-versions for tensors on the CPU. Multi-card runs (``parallel``) raise
-``NotImplementedError`` until their slice lands.
+versions for tensors on the CPU. Scale-out (``parallel``: particle meshes,
+Y-band and X-Y tile domains) runs one process a rank over
+``torch.distributed``.
 
 Quick start::
 

@@ -44,12 +44,13 @@ RESORT_EVERY = 16
 # ---------------------------------------------------------------------------
 
 
-def _pick_sort_field(fieldset):
+def _pick_sort_field(fieldset, shape_of=None):
     """Name of the largest field that needs the binned sampler, or None.
 
     Decided on the shapes the fields have on the device, a window's under a
-    time window (the JAX package reads the host's full shape; the choice
-    sets only the lane order, never a sample's value).
+    time window and a band's or tile's slab under a domain (``shape_of``;
+    the JAX package reads the host's full shape; the choice sets only the
+    lane order, never a sample's value).
     """
     from parcels_tpu_torch._core.field import Field, VectorField
     from parcels_tpu_torch.ops.binned_sample import binned_usable
@@ -60,7 +61,7 @@ def _pick_sort_field(fieldset):
         cand = f.U if isinstance(f, VectorField) else f
         if not isinstance(cand, Field) or cand.data.ndim != 4:
             continue
-        shape = fieldset._device_shape(cand)
+        shape = (shape_of or fieldset._device_shape)(cand)
         if fits_fast_path(shape) or not binned_usable(shape):
             continue
         if int(np.prod(shape)) > best_size:
@@ -68,14 +69,14 @@ def _pick_sort_field(fieldset):
     return best.name if best is not None else None
 
 
-def _sort_mode_enabled(fieldset) -> bool:
+def _sort_mode_enabled(fieldset, shape_of=None) -> bool:
     """Sorted mode follows the option and the field shapes (not the device)."""
     if os.environ.get("PARCELS_TPU_SORT_MODE", "auto") in ("0", "off"):
         return False
-    return _pick_sort_field(fieldset) is not None
+    return _pick_sort_field(fieldset, shape_of) is not None
 
 
-def _sort_worthwhile(fieldset, sort_field_name, n_block, z_occ) -> bool:
+def _sort_worthwhile(fieldset, sort_field_name, n_block, z_occ, shape_of=None) -> bool:
     """Will the binned sampler engage at this lane count? Forced sort mode
     always sorts; otherwise an infeasible bin plan makes the sort pure
     overhead."""
@@ -86,7 +87,7 @@ def _sort_worthwhile(fieldset, sort_field_name, n_block, z_occ) -> bool:
 
     f = fieldset.fields[sort_field_name]
     cand = f.U if isinstance(f, VectorField) else f
-    return plan_feasible(fieldset._device_shape(cand), n_block, z_occ)
+    return plan_feasible((shape_of or fieldset._device_shape)(cand), n_block, z_occ)
 
 
 def _permute_soa(pdata, order):

@@ -62,6 +62,10 @@ class GridSpec:
     offset_y: int = 0
     offset_z: int = 0
     has_lookup: bool = False
+    # global out-of-bounds limits of a band's or tile's slab (parallel/): the
+    # slab's nodes run past the domain edge, the bounds stay the domain's
+    y_oob_bounds: tuple[float, float] | None = None
+    x_oob_bounds: tuple[float, float] | None = None
 
 
 class XGrid(BaseGrid):
@@ -434,9 +438,9 @@ def grid_search(spec: GridSpec, garrs: dict, z, y, x, ei=None, lookup_meta: dict
     cached element index ``ei`` (reference XGrid.search).
     """
 
-    def axis(name, coord, pos, uniform):
+    def axis(name, coord, pos, uniform, oob_bounds=None):
         if name in spec.axes:
-            return index_search.search_1d(garrs[coord], pos, uniform)
+            return index_search.search_1d(garrs[coord], pos, uniform, oob_bounds)
         return torch.zeros(pos.shape, dtype=torch.int32, device=pos.device), torch.zeros_like(pos)
 
     zi, zeta = axis("Z", "depth", z, spec.depth_uniform)
@@ -461,8 +465,8 @@ def grid_search(spec: GridSpec, garrs: dict, z, y, x, ei=None, lookup_meta: dict
             "Y": {"index": yi, "bcoord": eta},
             "X": {"index": xi, "bcoord": xsi},
         }
-    yi, eta = axis("Y", "lat", y, spec.lat_uniform)
-    xi, xsi = axis("X", "lon", x, spec.lon_uniform)
+    yi, eta = axis("Y", "lat", y, spec.lat_uniform, spec.y_oob_bounds)
+    xi, xsi = axis("X", "lon", x, spec.lon_uniform, spec.x_oob_bounds)
     return {
         "Z": {"index": zi, "bcoord": zeta},
         "Y": {"index": yi, "bcoord": eta},

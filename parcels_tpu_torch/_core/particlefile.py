@@ -66,15 +66,16 @@ class ParticleFile:
             )
         if mode not in {None, "w"}:
             raise ValueError(f"Invalid mode value {mode!r}. Expected one of None or 'w'.")
-        if path.exists():
+        self._path = path
+        own = self._shard_path()
+        if own.exists():
             if mode is None:
-                raise ValueError(f"Path '{path}' already exists. Use mode='w' or use a new path.")
-            path.unlink()
+                raise ValueError(f"Path '{own}' already exists. Use mode='w' or use a new path.")
+            own.unlink()
         if not path.parent.exists():
             raise ValueError(f"Folder location for '{path}' does not exist. Create it first.")
 
         self._outputdt = outputdt
-        self._path = path
         self._compression = compression
         self._writer = None
         self.metadata: dict = {}
@@ -157,6 +158,16 @@ class ParticleFile:
             self._time_interval = (fieldset or pset.fieldset).time_interval
         self._write_sync(dict(pset._data), timedelta_to_float(t), indices=indices)
 
+    def _shard_path(self) -> Path:
+        """This rank's output file: ``<stem>.<rank>.parquet`` when the
+        process group has more than one rank (each rank writes its own
+        lanes; the global particle ids make the union order-free), else the
+        path itself."""
+        from parcels_tpu_torch.parallel._comm import world
+
+        rank, size = world()
+        return self._path if size <= 1 else self._path.with_suffix(f".{rank}.parquet")
+
     @staticmethod
     def _to_host(v) -> np.ndarray:
         """Device->host copy of one snapshot column."""
@@ -168,7 +179,7 @@ class ParticleFile:
 
         if self._writer is None:
             self._writer = pq.ParquetWriter(
-                self._path,
+                self._shard_path(),
                 _get_schema(self._pclass, self.metadata, self._time_interval),
                 compression=self._compression,
             )
@@ -243,16 +254,35 @@ def read_particlefile(path, decode_times: bool = True):
     """Read a trajectory Parquet file into a pandas DataFrame.
 
     With ``decode_times=True`` the numeric ``t`` column is decoded from the
-    CF units metadata into datetime64/timedelta64 values.
+    CF units metadata into datetime64/timedelta64 values. Where ``path``
+    does not exist but rank files ``<stem>.<rank>.parquet`` of a multi-rank
+    run do, their union is read, in rank order; only names of exactly that
+    form count.
     """
+    import pyarrow as pa
     import pyarrow.parquet as pq
 
     path = Path(path)
     if path.suffix != ".parquet":
         raise ValueError("Only Parquet files are supported")
+    if not path.exists():
+        ranks = _rank_files(path)
+        if ranks:
+            table = pa.concat_tables([pq.read_table(p) for p in ranks])
+            return _decode_times_df(table.to_pandas(), table, decode_times)
     table = pq.read_table(path)
     df = table.to_pandas()
     return _decode_times_df(df, table, decode_times)
+
+
+def _rank_files(path: Path) -> list:
+    """The files ``<stem>.<rank>.parquet`` beside ``path``, by rank number."""
+    import re
+
+    form = re.compile(rf"^{re.escape(path.stem)}\.(\d+)\.parquet$")
+    found = [(int(m.group(1)), p) for p in path.parent.iterdir()
+             if (m := form.match(p.name)) is not None]
+    return [p for _, p in sorted(found)]
 
 
 def _decode_times_df(df, table, decode_times: bool):

@@ -13,9 +13,12 @@ trajectory file. ``pset += other`` merges a second release on the set's
 device, ``remove_indices`` recaptures particles, and iteration, indexing
 and ``describe`` copy each column to the host once per call.
 
-Particle meshes and domain decomposition belong to the scale-out slice of
-the port; the lockstep time window of the JAX package is not ported (the
-card's K1 samples the whole field, see ``ops/interp_kernels``).
+Bound to a ``parallel`` particle mesh, band or tile domain
+(``shard_particleset``), ``execute`` runs over the ranks of the process
+group: each rank runs its lanes, the rank-sharded output writes one file a
+rank, and the SoA is gathered back to every rank at the end. The lockstep
+time window of the JAX package is not ported (the card's K1 samples the
+whole field, see ``ops/interp_kernels``).
 """
 
 from __future__ import annotations
@@ -396,8 +399,23 @@ class ParticleSet:
         """Write the full particle state to an .npz checkpoint: every SoA
         column, including non-written variables, the validity mask, the
         (2,) uint32 RNG key ``_rng``, the clock carry ``_tc`` and the
-        persistent cache columns (``_sc_*``, ``_uxc_*``)."""
-        np.savez_compressed(path, **{k: _host(v) for k, v in self._data.items()})
+        persistent cache columns (``_sc_*``, ``_uxc_*``). The file is
+        written beside ``path`` and renamed into place, so that the ranks of
+        a multi-rank run, which hold the same gathered state, may all write
+        it."""
+        import tempfile
+
+        path = os.fspath(path)
+        if not path.endswith(".npz"):
+            path += ".npz"  # as numpy.savez_compressed names it
+        fd, tmp = tempfile.mkstemp(suffix=".npz", dir=os.path.dirname(os.path.abspath(path)))
+        try:
+            with os.fdopen(fd, "wb") as fh:
+                np.savez_compressed(fh, **{k: _host(v) for k, v in self._data.items()})
+            os.replace(tmp, path)
+        except BaseException:
+            os.unlink(tmp)
+            raise
 
     @classmethod
     def from_checkpoint(cls, fieldset, path: str, pclass=Particle):
@@ -506,15 +524,59 @@ class ParticleSet:
         if uxc_ok and uxcache.UXC_KEY not in d:
             d.update(uxcache.make_soa_cache(d["state"].shape[0], uxc_meta, self.device))
 
-        self._pad_capacity(DEFAULT_BLOCK_SIZE)
-        if _sort_mode_enabled(self.fieldset) and not bool(self._data["ei"].any()):
-            # sort keys come from the ei cache; seed it so the FIRST chunk
-            # bins correctly instead of overflowing to the gather fix-up
-            self.populate_indices()
+        domain = self.__dict__.get("_domain")
+        pmesh = self.__dict__.get("_pmesh")
+        sharded = domain if domain is not None else pmesh
+        if domain is None:
+            if pmesh is None:
+                self._pad_capacity(DEFAULT_BLOCK_SIZE)
+            if _sort_mode_enabled(self.fieldset) and not bool(self._data["ei"].any()):
+                # sort keys come from the ei cache; seed it so the FIRST chunk
+                # bins correctly instead of overflowing to the gather fix-up
+                self.populate_indices()
         windowed = self.fieldset._time_window is not None
-        farrays = None if windowed else self.fieldset.device_arrays()
+        f32 = dict(dtype=torch.float32, device=self.device)
+        dt_dev = torch.tensor(dt, **f32)
+        if domain is not None:
+            from parcels_tpu_torch.parallel import build_domain_executor, build_tile_executor
+            from parcels_tpu_torch.parallel.tiles import XYTileDomain
+
+            build = build_tile_executor if isinstance(domain, XYTileDomain) else build_domain_executor
+            executor = build(tuple(kernels), domain, sign_dt=sign_dt, rk45_mode=rk45_mode,
+                             z_occ=z_occ)
+            dev = domain.shard_soa(self._data)
+            sent0, steps0 = domain.stats["sent"], domain.stats["steps"]
+
+            def step(farrays, dev, endtime):
+                return executor(farrays, dev, endtime, dt_dev.to(domain.device))
+
+            def window(t0, t1):
+                return domain.stacked_windowed(t0, t1)
+
+            farrays = None if windowed else domain.stacked_farrays()
+        else:
+            def step(farrays, dev, endtime):
+                return run_chunk(self.fieldset, kernels, farrays, dev, endtime,
+                                 dt_dev.to(endtime.device), sign_dt=sign_dt,
+                                 rk45_mode=rk45_mode, z_occ=z_occ)
+
+            if pmesh is not None:
+                dev = pmesh.shard_soa(self._data)
+
+                def window(t0, t1):
+                    return pmesh.shard_fields(self.fieldset.windowed_arrays(t0, t1))
+
+                farrays = None if windowed else pmesh.shard_fields(self.fieldset.device_arrays())
+            else:
+                dev = dict(self._data)
+                window = self.fieldset.windowed_arrays
+                farrays = None if windowed else self.fieldset.device_arrays()
+        run_device = dev["state"].device
         window_key = None
-        dev = dict(self._data)
+        if sharded is not None:
+            from parcels_tpu_torch.parallel import _comm
+
+            comm0 = _comm.comm_stats()  # this run's collectives are counted from here
 
         if output_file is not None:
             output_file.set_metadata(self.fieldset, self._pclass, kernels)
@@ -529,8 +591,6 @@ class ParticleSet:
 
             pbar = tqdm(total=sign_dt * (end_time - start_time))
 
-        f32 = dict(dtype=torch.float32, device=self.device)
-        dt_dev = torch.tensor(dt, **f32)
         wall0 = _time.perf_counter()
         nchunks = 0
         time = start_time
@@ -545,24 +605,51 @@ class ParticleSet:
         est_per_step = None
         t_mark = _time.perf_counter()
         try:
-            # the host reads chunk k's flags after starting chunk k+1; the
-            # chunk-start requeue keeps error/Stop lanes, so a chunk after a
-            # halted one is a no-op and the deferred check sees identical state
+            # on one card the host reads chunk k's flags after starting chunk
+            # k+1; the chunk-start requeue keeps error/Stop lanes, so a chunk
+            # after a halted one is a no-op and the deferred check sees
+            # identical state. Over ranks every chunk is drained at once, with
+            # its flags and step time reduced over the ranks, so every rank
+            # takes the same decisions and chunk lengths.
             def drain(pending):
                 nonlocal est_per_step, cur_chunk, t_mark
                 flags, steps_done, idx = pending
-                err_any, stop_any = (int(v) for v in flags.tolist())
                 now = _time.perf_counter()
+                w = max(now - t_mark, 1e-6) / steps_done
+                if sharded is not None:
+                    us = torch.tensor([int(w * 1e6)], device=flags.device)
+                    host = _comm.allreduce_max(torch.cat([flags.to(torch.int64), us]))
+                    w = float(host[-1]) / 1e6
+                    err_any, stop_any, migof, haloof = (int(v) for v in host[:4].tolist())
+                else:
+                    err_any, stop_any, migof, haloof = (int(v) for v in flags.tolist())
                 if adaptive and idx > 0:
-                    w = max(now - t_mark, 1e-6) / steps_done
                     est_per_step = w if est_per_step is None else 0.5 * est_per_step + 0.5 * w
                     cur_chunk = max(1, min(max_chunk, int(target_s / est_per_step)))
                 t_mark = now
+                # domain diagnostics outrank per-particle states: a halo or
+                # buffer breach invalidates the samples that made those states
+                if migof:
+                    raise RuntimeError(
+                        "Particle migration buffer overflow: increase "
+                        "YBandDomain(headroom=..., migration_capacity=...) or halo."
+                    )
+                if haloof and (not domain.curvilinear or self._curvilinear_halo_breach(
+                        dev, kernels, pending_span[0], pending_span[1], dt, sign_dt,
+                        rk45_mode, windowed)):
+                    raise RuntimeError(
+                        "Halo violation: a particle moved beyond its band's halo-extended "
+                        "slab in a single step, so its field samples were clamped at the "
+                        "slab edge (rectilinear bands) or its point-in-cell walk failed "
+                        "(curvilinear bands). Increase YBandDomain(halo=...) or reduce dt "
+                        "(halo must cover the max per-step displacement in cells)."
+                    )
                 if err_any:
-                    self._raise_errors(dev)
+                    self._raise_errors(dev, sharded is not None)
                 return bool(stop_any)
 
             pending = None
+            pending_span = (start_time, start_time)
             while sign_dt * (time - end_time) < 0:
                 f = min if sign_dt > 0 else max
                 next_time = f(next_output, end_time) if next_output is not None else end_time
@@ -587,34 +674,39 @@ class ParticleSet:
                             pending = None
                             if stop0:
                                 break
-                    farrays = self.fieldset.windowed_arrays(time, next_time)
+                    farrays = window(time, next_time)
                 if windowed and sign_dt * (next_time - end_time) < 0:
                     # stage the next window while this chunk runs. The chunk's
-                    # eager steps occupy this thread until run_chunk returns,
-                    # so the read is issued before it (the JAX package issues
-                    # it after its asynchronous dispatch). Forward chunks
-                    # anchor at next_time, backward ones at an estimate (a
-                    # miss costs one synchronous load)
+                    # eager steps occupy this thread until it returns, so the
+                    # read is issued before it (the JAX package issues it after
+                    # its asynchronous dispatch). Forward chunks anchor at
+                    # next_time, backward ones at an estimate (a miss costs one
+                    # synchronous load)
                     anchor = next_time if sign_dt > 0 else next_time + (next_time - time)
-                    self.fieldset.prefetch_window(anchor)
-                dev = run_chunk(
-                    self.fieldset, kernels, farrays, dev,
-                    torch.tensor(np.float32(next_time), **f32), dt_dev,
-                    sign_dt=sign_dt, rk45_mode=rk45_mode, z_occ=z_occ,
-                )
+                    (domain or self.fieldset).prefetch_window(anchor)
+                dev = step(farrays, dev, torch.tensor(np.float32(next_time), dtype=torch.float32,
+                                                      device=run_device))
                 act, st = dev["_active"], dev["state"]
+                zero = torch.zeros((), dtype=torch.bool, device=run_device)
                 flags = torch.stack([
                     (act & (st >= MIN_ERROR_CODE)).any(),
                     (act & (st == StatusCode.StopAllExecution)).any(),
+                    dev["_migof"] > 0 if "_migof" in dev else zero,
+                    dev["_haloof"] > 0 if "_haloof" in dev else zero,
                 ])
-                stop_prev = drain(pending) if pending is not None else False
+                stop_prev = False
+                if pending is not None:
+                    stop_prev = drain(pending)
                 steps_done = max(1, round(abs(float(next_time) - float(time)) / abs(dt))) if dt else 1
                 pending = (flags, steps_done, nchunks)
+                pending_span = (time, next_time)
 
-                if next_output is not None and abs(next_time - next_output) < 1e-3:
+                if sharded is not None or (
+                        next_output is not None and abs(next_time - next_output) < 1e-3):
                     # a snapshot must reflect a chunk already checked for errors
                     stop_prev = drain(pending) or stop_prev
                     pending = None
+                if next_output is not None and abs(next_time - next_output) < 1e-3:
                     if output_file:
                         output_file.write_snapshot(dict(dev), next_output)
                     if np.isfinite(outputdt):
@@ -630,10 +722,38 @@ class ParticleSet:
         finally:
             if pbar is not None:
                 pbar.close()
-            self._data = dev
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+            if sharded is None:
+                self._data = dev
+            else:
+                from parcels_tpu_torch.parallel.sharding import gather_lanes
+
+                gather0 = _time.perf_counter()
+                self._data = gather_lanes(dev, self.device)
+                if run_device.type == "cuda":
+                    torch.cuda.synchronize(run_device)
+                gather_s = _time.perf_counter() - gather0
+            if run_device.type == "cuda":
+                torch.cuda.synchronize(run_device)
             wall = _time.perf_counter() - wall0
+            stats = {}
+            if sharded is not None:
+                # rank 0's wall clock, the lanes of every rank
+                walls = _comm.host_rows([wall])
+                wall = float(walls[0, 0])
+                if domain is not None:
+                    moved = _comm.host_rows([domain.stats["sent"] - sent0,
+                                             domain.stats["steps"] - steps0])
+                    stats = {"ranks": int(walls.shape[0]),
+                             "migrated_lanes": int(moved[:, 0].sum()),
+                             "migrated_per_step": float(moved[:, 0].sum() / max(moved[0, 1], 1))}
+                else:
+                    stats = {"ranks": int(walls.shape[0])}
+                comm = _comm.comm_stats()
+                # this run's collectives on this rank
+                stats["comm"] = {k: v - comm0[k] if k != "transport" else v
+                                 for k, v in comm.items()}
+                # the final gather of the lanes to every rank, on this rank
+                stats["gather_s"] = round(gather_s, 4)
             nsteps = abs(time - start_time) / abs(dt) if dt else 0.0
             self.last_run_stats = {
                 "wall_s": round(wall, 4),
@@ -643,20 +763,67 @@ class ParticleSet:
                 "z_occupancy_hint": z_occ,
                 "chunk_steps_final": cur_chunk,
                 "est_seconds_per_step": round(est_per_step, 6) if est_per_step is not None else None,
+                **stats,
             }
             if output_file is not None:
                 output_file.flush()
 
-    def _raise_errors(self, dev):
+    def _curvilinear_halo_breach(self, dev, kernels, time, next_time, dt, sign_dt, rk45_mode,
+                                 windowed) -> bool:
+        """Tell a curvilinear band's halo breach from a particle leaving the grid.
+
+        A lane that out-ran its band's slab fails its point-in-cell walk,
+        though its step is valid on the GLOBAL grid (a halo breach: the
+        increase-halo message); a lane that left the grid fails there too
+        (its typed error, as on one card). Each rank replays one step of its
+        failing lanes on the fieldset's global tensors; a breach is when
+        every rank's failing lanes pass. Error path only.
+        """
+        from parcels_tpu_torch._core.engine import engine_step
+        from parcels_tpu_torch.parallel import _comm
+
+        err = dev["_active"] & (dev["state"] == StatusCode.ErrorGridSearching)
+        ok = True
+        if bool(err.any()):
+            farrays = (self.fieldset.windowed_arrays(time, next_time) if windowed
+                       else self.fieldset.device_arrays())
+            fsview = self.fieldset.build_views(farrays)
+            idx = torch.nonzero(err).flatten().to(self.device)
+            from parcels_tpu_torch.ops.stagecache import invalidate_soa_cache
+
+            sub = {k: v if k in ("_rng", "_migof", "_haloof") else v.to(self.device)[idx]
+                   for k, v in dev.items()}
+            # the lanes' cached cells are in their slab's frame
+            sub = invalidate_soa_cache(sub)
+            sub["ei"] = torch.zeros_like(sub["ei"])
+            sub["state"] = torch.full_like(sub["state"], int(StatusCode.Evaluate))
+            sub["_active"] = torch.ones_like(sub["_active"])
+            for d in ("dx", "dy", "dz"):
+                sub[d] = torch.zeros_like(sub[d])
+            f32 = dict(dtype=torch.float32, device=self.device)
+            out = engine_step(fsview, sub, torch.tensor(np.float32(next_time), **f32),
+                              torch.tensor(np.float32(dt), **f32), kernels, sign_dt, rk45_mode)
+            ok = bool((out["state"] < MIN_ERROR_CODE).all())
+        return int(_comm.allreduce_max(torch.tensor([int(not ok)]))[0]) == 0
+
+    def _raise_errors(self, dev, sharded: bool = False):
+        """Raise the typed error of the first lane in an error state; over
+        ranks, of the first such lane of the lowest rank that has one, on
+        every rank."""
         states = _host(dev["state"])
         err = _host(dev["_active"]) & (states >= MIN_ERROR_CODE)
-        if not err.any():
-            return
-        idx = int(np.argmax(err))
-        raise_error_from_state(
-            int(states[idx]), z=float(dev["z"][idx]), y=float(dev["y"][idx]),
-            x=float(dev["x"][idx]), t=float(dev["t"][idx]),
-        )
+        row = [0.0] * 6
+        if err.any():
+            idx = int(np.argmax(err))
+            row = [1.0, float(states[idx])] + [float(dev[v][idx]) for v in ("z", "y", "x", "t")]
+        if sharded:
+            from parcels_tpu_torch.parallel import _comm
+
+            rows = _comm.host_rows(row)
+            hit = np.flatnonzero(rows[:, 0])
+            row = list(rows[hit[0]]) if hit.size else row
+        if row[0]:
+            raise_error_from_state(int(row[1]), z=row[2], y=row[3], x=row[4], t=row[5])
 
     def _check_kernel_prerequisites(self, kernels):
         """RK45 context defaults (reference kernel.py:122-161)."""

@@ -8,6 +8,8 @@ import sys
 
 import pytest
 
+from parcels_tpu_torch.parallel._ranks import RankPool
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "parcels_tpu_torch"
 
@@ -30,6 +32,23 @@ def test_import_leaves_jax_out():
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT, env=env, timeout=120)
+
+
+def loaded_reference_modules():
+    return [m for m in ("jax", "parcels_tpu") if m in sys.modules]
+
+
+def test_spawned_rank_leaves_jax_out(tmp_path):
+    """A rank spawned for a multi-rank run of the port (``parallel._ranks``)
+    imports the port and runs it without loading JAX or parcels_tpu."""
+    pool = RankPool(2, str(tmp_path))
+    try:
+        pool.run("torch_scaleout", "run", timeout=120, name="torch", build="uniform",
+                 build_kw=dict(u=0.0, v=1.0), x=[0.0, 1e4], y=[-5e5, 5e5], runtime_s=1200,
+                 dom=dict(kind="band", n=2, halo=2))
+        assert pool.run(__name__, "loaded_reference_modules") == [[], []]
+    finally:
+        pool.close()
 
 
 def test_io_imports_without_tensorstore_or_h5py():

@@ -231,30 +231,16 @@ def test_default_device_is_cuda_or_raises(monkeypatch):
         tp.FieldSet.from_sgrid_conventions(_field_dataset("torch", (2, 1, 8, 8)), mesh="flat")
 
 
-def _later_slice_cases():
-    def window():
-        _, tfs = _fieldsets((4, 1, 8, 8))
-        tfs.set_time_window(2)
-
-    def particle_mesh():
-        from parcels_tpu_torch.parallel import ParticleMesh
-
-        ParticleMesh()
-
-    def domain():
-        from parcels_tpu_torch.parallel import YBandDomain
-
-        _, tfs = _fieldsets((2, 1, 8, 8))
-        YBandDomain(tfs, halo=2)
-
-    return {"window": window, "particle_mesh": particle_mesh, "domain": domain}
-
-
 @pytest.mark.parametrize("case", ["window", "particle_mesh", "domain"])
 def test_later_slice_features_raise(case):
-    """Features of later slices raise until their slice lands. Time windows
-    have landed: the window case now streams and matches the resident run
-    (rtol 1e-6, atol 1e-3 m, the tolerance of tests/test_windowing.py)."""
+    """Features of later slices raised until their slice landed; all three
+    have landed. Time windows stream and match the resident run (rtol 1e-6,
+    atol 1e-3 m, the tolerance of tests/test_windowing.py); a particle mesh
+    and a Y-band domain over the one rank of a process without a process
+    group run and equal the unsharded run bit for bit (their multi-rank
+    runs: tests/test_torch_parallel.py and tests/test_torch_domain*.py)."""
+    from parcels_tpu_torch.parallel import ParticleMesh, YBandDomain, shard_particleset
+
     if case == "window":
         _, resident = _fieldsets((4, 1, 8, 8))
         _, windowed = _fieldsets((4, 1, 8, 8))
@@ -266,8 +252,19 @@ def test_later_slice_features_raise(case):
             np.testing.assert_allclose(getattr(a, v), getattr(b, v), rtol=1e-6, atol=1e-3)
         assert windowed.window_stats["loads"] > 0
         return
-    with pytest.raises(NotImplementedError):
-        _later_slice_cases()[case]()
+    shape = (2, 1, 8, 8)
+    _, tfs = _fieldsets(shape)
+    seeds = _seeds(16, shape)
+    sharded = tp.ParticleSet(tfs, **seeds)
+    shard_particleset(sharded, ParticleMesh(devices="cpu") if case == "particle_mesh"
+                      else YBandDomain(tfs, halo=2))
+    sharded.execute(tp.AdvectionRK4, dt=np.timedelta64(300, "s"),
+                    runtime=np.timedelta64(3600, "s"))
+    plain = _run(tfs, "torch", tp.AdvectionRK4, seeds)
+    order = np.argsort(sharded.particle_id)
+    for v in ("x", "y", "particle_id", "state"):
+        np.testing.assert_array_equal(getattr(sharded, v)[order], getattr(plain, v))
+    assert sharded.last_run_stats["ranks"] == 1
 
 
 def test_blocked_engine_matches_one_block(monkeypatch):

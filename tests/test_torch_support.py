@@ -31,11 +31,13 @@ from parcels_tpu_torch._core.index_search import search_1d as t_search_1d
 from parcels_tpu_torch._strategies import paddings, sgrid3d_metadata, sgrid_dataset, sgrid_metadata
 
 
-@pytest.mark.parametrize("module", ["", "convert", "datasets", "kernels", "interpolators", "io"])
+@pytest.mark.parametrize("module", ["", "convert", "datasets", "kernels", "interpolators", "io",
+                                    "parallel"])
 def test_public_names_equal_the_reference(module):
     """The port's ``__all__`` equals parcels_tpu's, top level and in each
     public module (``state_from_numpy``, the port's bridge from the JAX
-    package's state, is its one extra name); ``parallel`` still raises."""
+    package's state, is its one extra name); ``parallel`` no longer raises:
+    a one-rank particle mesh builds where a process has no process group."""
     suffix = f".{module}" if module else ""
     j = importlib.import_module("parcels_tpu" + suffix)
     t = importlib.import_module("parcels_tpu_torch" + suffix)
@@ -43,10 +45,9 @@ def test_public_names_equal_the_reference(module):
     for name in t.__all__:
         assert hasattr(t, name), name
     if not module:
-        with pytest.raises(NotImplementedError):
-            from parcels_tpu_torch.parallel import ParticleMesh  # noqa: F401
+        from parcels_tpu_torch.parallel import ParticleMesh
 
-            ParticleMesh(n_devices=1)
+        assert ParticleMesh(n_devices=1, devices="cpu").n == 1
 
 
 def test_sectioned_repr_functions_equal_reference():
