@@ -182,7 +182,22 @@ counter is set to 0 just before a path runs and read just after):
     held there bit for bit against its plain version on the rank's largest
     recorded call (its slab, its lanes), the config-5 grid banded by cell row (256K particles, 3 RK4
     steps at dt 600 s; phase 10's rule) and phase 16's UGRID mesh under a
-    ``ParticleMesh`` (64K, 6 steps at dt 120 s).
+    ``ParticleMesh`` (64K, 6 steps at dt 120 s);
+23. the JAX package's behaviour tiers on the card (``behaviour_phase``):
+    (m), path (a)'s (24, 1, 256, 1000) field and grid on an hourly
+    ``360_day`` axis from 2000-02-30, 1M particles, RK4 at dt 60 s for 6 h
+    with hourly Parquet output read back as ``360_day`` ``CFDatetime``s
+    (K1, 8 launches a step, one recorded call held bit for bit against its
+    plain version; particle-steps/s printed beside the card's name and
+    power limit); on the card alone, the clock at dt 0.7 s for an hour,
+    landing exactly; then the card against the CPU at 64K particles, each
+    with equal live-lane counts, ids, states and clocks and positions
+    within rtol 1e-5: (m)'s first hour (both Parquet files equal in
+    columns, types, metadata, rows, ids and times), the clock from 100 days
+    (past 2^23 s) at dt 17.3 s for half an hour and at dt 0.7 s for a
+    minute (``t`` landing exactly, bit for bit), backward in time to the start
+    (the engine tier's closed form), ``StopAllExecution`` and the Delete
+    recovery kernel.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Field data and
@@ -297,9 +312,10 @@ def j2_dataset():
                            extent=(1e6, 1e6))
 
 
-def flat_dataset_of(data, extent):
+def flat_dataset_of(data, extent, taxis=None):
     """An SGRID dataset of the (T, Z, Y, X) arrays in ``data`` on a flat
-    rectilinear grid over ``extent`` (m), with hourly levels."""
+    rectilinear grid over ``extent`` (m), with hourly levels from
+    2000-01-01 unless ``taxis`` gives the time axis."""
     from parcels_tpu_torch import xrlite as xr
     from parcels_tpu_torch.datasets.structured import _coords_2d, _wrap_sgrid
 
@@ -307,7 +323,9 @@ def flat_dataset_of(data, extent):
     lon = np.linspace(0.0, extent[1], X)
     lat = np.linspace(0.0, extent[0], Y)
     depth = np.linspace(0.0, 500.0, Z) if Z > 1 else np.array([0.0])
-    taxis = np.array([np.datetime64("2000-01-01") + np.timedelta64(3600 * i, "s") for i in range(T)])
+    if taxis is None:
+        taxis = np.array([np.datetime64("2000-01-01") + np.timedelta64(3600 * i, "s")
+                          for i in range(T)])
     dims = ["time", "depth", "YG", "XG"]
     ds = xr.Dataset({c: (dims, a) for c, a in data.items()},
                     coords=_coords_2d(lon, lat, time=taxis, depth=depth, mesh="flat"))
@@ -2990,6 +3008,264 @@ def p22_phase(torch, tp, cfg=P22):
     return results
 
 
+#: phase 23 (m): path (a)'s shape and grid on a 360_day calendar, from a day
+#: only that calendar has; 1M particles, RK4 at dt 60 s for 6 h, hourly output
+M_SHAPE = (24, 1, 256, 1000)
+M_EXTENT = (255e3, 999e3)
+M_START = (2000, 2, 30)
+M_LANES = 1 << 20
+M_HOURS = 6
+#: phase 23's card-against-CPU runs: 64K particles; (m) there runs its first
+#: hour, the past-cliff clock half an hour and the sub-second dt a minute, so
+#: that the CPU side stays within the phase's minute (the card runs the
+#: sub-second dt's whole hour as well)
+M_CPU_LANES = 1 << 16
+#: the past-cliff clock case: a start of 100 days (8.64e6 s > 2^23 s, where
+#: the f32 step of t is 1 s) and the engine tier's dt of 17.3 s
+CLIFF_T0_S = 100 * 86400.0
+CLIFF_DT = np.timedelta64(17300, "ms")
+
+
+def m_dataset(seed=23):
+    """(m)'s field: path (a)'s random hourly currents on a 360_day axis."""
+    from datetime import timedelta
+
+    from parcels_tpu_torch._core.calendars import CFDatetime
+
+    start = CFDatetime(*M_START, calendar="360_day")
+    taxis = np.asarray([start + timedelta(hours=i) for i in range(M_SHAPE[0])], dtype=object)
+    rng = np.random.default_rng(seed)
+    data = {c: rng.uniform(-0.3, 0.3, M_SHAPE).astype(np.float32) for c in ("U", "V")}
+    return flat_dataset_of(data, M_EXTENT, taxis=taxis), start
+
+
+def m_run(tp, fs, n, hours, path, seed=24):
+    """(m)'s release of ``n`` particles over the inner 80 % of the grid, RK4
+    at dt 60 s for ``hours``, with hourly Parquet output to ``path``."""
+    rng = np.random.default_rng(seed)
+    pset = tp.ParticleSet(fs, x=rng.uniform(0.1 * M_EXTENT[1], 0.9 * M_EXTENT[1], n),
+                          y=rng.uniform(0.1 * M_EXTENT[0], 0.9 * M_EXTENT[0], n), t=np.zeros(n))
+    pf = tp.ParticleFile(path, outputdt=np.timedelta64(1, "h"), mode="w")
+    pset.execute(tp.AdvectionRK4, dt=np.timedelta64(60, "s"), runtime=np.timedelta64(hours, "h"),
+                 output_file=pf)
+    pf.close()
+    return pset
+
+
+def m_times(tp, path, start, hours, rows_per_time):
+    """(m)'s file read back: ``rows_per_time`` rows at each hour from
+    ``start`` to ``hours``, each decoded as that hour's 360_day
+    ``CFDatetime``. Returns the rows read."""
+    from datetime import timedelta
+
+    import pyarrow.parquet as pq
+
+    decoded = tp.read_particlefile(path)["t"].to_numpy()
+    secs, first, per = np.unique(pq.read_table(path, columns=["t"]).column("t").to_numpy(),
+                                 return_index=True, return_counts=True)
+    want = [start + timedelta(hours=h) for h in range(hours + 1)]
+    got = list(decoded[first])
+    if (list(secs) != [3600.0 * h for h in range(hours + 1)] or set(per) != {rows_per_time}
+            or got != want or {t.calendar for t in got} != {"360_day"}):
+        raise AssertionError(f"(m): output times {got} at {secs} s with {set(per)} rows each, "
+                             f"expected {want} with {rows_per_time}")
+    return len(decoded)
+
+
+def same_parquet(name, a, b, rtol=1e-5):
+    """Two trajectory files of one run on the card and on the CPU: equal
+    columns, types, file and column metadata, row counts, ids and times; the
+    other values within ``rtol`` in (t, particle_id) order. Returns the
+    largest difference."""
+    import pyarrow.parquet as pq
+
+    ta, tb = pq.read_table(a), pq.read_table(b)
+    names = ta.schema.names
+    if names != tb.schema.names or [f.type for f in ta.schema] != [f.type for f in tb.schema]:
+        raise AssertionError(f"{name}: columns {ta.schema} against {tb.schema}")
+    meta = [(ta.schema.metadata, tb.schema.metadata)] + [
+        (ta.schema.field(c).metadata, tb.schema.field(c).metadata) for c in names]
+    if any(x != y for x, y in meta) or ta.num_rows != tb.num_rows:
+        raise AssertionError(f"{name}: metadata or rows differ ({ta.num_rows}, {tb.num_rows})")
+    oa, ob = (np.lexsort((t.column("particle_id").to_numpy(), t.column("t").to_numpy()))
+              for t in (ta, tb))
+    dmax = 0.0
+    for c in names:
+        va, vb = ta.column(c).to_numpy()[oa], tb.column(c).to_numpy()[ob]
+        if c in ("t", "particle_id"):
+            np.testing.assert_array_equal(va, vb, err_msg=f"{name}: {c}")
+        else:
+            np.testing.assert_allclose(va, vb, rtol=rtol, err_msg=f"{name}: {c}")
+            dmax = max(dmax, float(np.abs(va.astype(np.float64) - vb).max()))
+    return dmax
+
+
+def same_sets(name, a, b, rtol=1e-5):
+    """The card's particle set against the CPU's: equal live-lane counts,
+    ids, states and clocks; positions within ``rtol``."""
+    if len(a) != len(b):
+        raise AssertionError(f"{name}: {len(a)} live lanes on the card, {len(b)} on the CPU")
+    for var in ("particle_id", "t"):
+        np.testing.assert_array_equal(getattr(a, var), getattr(b, var), err_msg=f"{name}: {var}")
+    return assert_same(name, a, b, rtol=rtol, vars_=("x", "y"))
+
+
+def stop_after_an_hour(particles, fieldset):
+    """The engine tier's StopAllExecution kernel (``tests/test_engine.py``)."""
+    import torch
+
+    from parcels_tpu_torch import StatusCode
+
+    particles.state = torch.where(particles.t >= 3600.0, StatusCode.StopAllExecution,
+                                  particles.state)
+
+
+def uniform_flow(tp, device, u, v, dims):
+    from parcels_tpu_torch.datasets import simple_UV_dataset
+
+    ds = simple_UV_dataset(dims=dims, mesh="flat")
+    ds["U"].values[:] = u
+    ds["V"].values[:] = v
+    return tp.FieldSet.from_sgrid_conventions(ds, mesh="flat", device=device)
+
+
+def engine_case(tp, device, case, full=True):
+    """One of the engine tier's cases on ``device`` at ``M_CPU_LANES``
+    particles (seeded); ``full=False`` cuts a clock case short (the cliff
+    case runs only so)."""
+    n = M_CPU_LANES
+    rng = np.random.default_rng(26)
+    h = np.timedelta64(1, "h")
+    if case in ("cliff", "subsecond"):
+        u, t0, dt = (0.1, CLIFF_T0_S, CLIFF_DT) if case == "cliff" else (
+            1.0, 0.0, np.timedelta64(700, "ms"))
+        # the engine tier's hour at dt 0.7 s on the card; cut short for the
+        # CPU, half an hour past the cliff (104 steps) and a minute (86 steps)
+        runtime = {("cliff", False): np.timedelta64(30, "m"), ("subsecond", True): h,
+                   ("subsecond", False): np.timedelta64(1, "m")}[case, full]
+        fs = uniform_flow(tp, device, u, 0.0, (2, 2, 8, 8))
+        pset = tp.ParticleSet(fs, x=rng.uniform(-1e6, -9e5, n), y=rng.uniform(-5e5, 5e5, n),
+                              t=np.full(n, t0))
+        pset.execute(tp.AdvectionEE, dt=dt, runtime=runtime)
+        return pset
+    if case == "backward":
+        fs = uniform_flow(tp, device, 1.0, 0.5, (2, 2, 20, 20))
+        x0, y0 = rng.uniform(1e5, 5e5, n), rng.uniform(1e5, 5e5, n)
+        pset = tp.ParticleSet(fs, x=x0, y=y0, t=np.full(n, 7200.0))
+        pset.execute(tp.AdvectionRK4, dt=np.timedelta64(-5, "m"), runtime=2 * h)
+        # the engine tier's closed form, at its tolerance
+        np.testing.assert_allclose(pset.x, x0 - 7200.0, rtol=1e-5, err_msg="backward: x")
+        np.testing.assert_allclose(pset.y, y0 - 3600.0, rtol=1e-5, err_msg="backward: y")
+        return pset
+    if case == "stop_all":
+        fs = uniform_flow(tp, device, 1.0, 0.0, (2, 2, 20, 20))
+        pset = tp.ParticleSet(fs, x=rng.uniform(-5e5, 5e5, n), y=rng.uniform(-5e5, 5e5, n),
+                              t=np.zeros(n))
+        pset.execute([tp.AdvectionEE, stop_after_an_hour], dt=np.timedelta64(30, "m"),
+                     runtime=6 * h)
+        return pset
+    # the Delete recovery kernel: 50 m/s east for 2 h moves 360 km, so the
+    # lanes released east of 6.4e5 m leave the grid and are deleted
+    fs = uniform_flow(tp, device, 50.0, 0.0, (2, 2, 20, 20))
+    pset = tp.ParticleSet(fs, x=rng.uniform(-9e5, 9.9e5, n), y=rng.uniform(-5e5, 5e5, n),
+                          t=np.zeros(n))
+    pset.execute([tp.AdvectionEE, delete_oob], dt=np.timedelta64(30, "m"), runtime=2 * h)
+    return pset
+
+
+def behaviour_phase(torch, tp):
+    """Phase 23: (m) on the card, then the card against the CPU on (m) and
+    the engine tier's cases (see the module docstring)."""
+    from datetime import timedelta
+
+    root = pathlib.Path("build/behaviour")
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    try:
+        t0 = time.perf_counter()
+        ds_m, start = m_dataset()
+        fs_m = tp.FieldSet.from_sgrid_conventions(ds_m, mesh="flat")
+        if type(fs_m.time_interval.left).__name__ != "CFDatetime":
+            raise AssertionError("(m): the fieldset's time axis is not a 360_day CFDatetime")
+        seen, restore = fold_calls()
+        try:
+            zero_counts()
+            pset = m_run(tp, fs_m, M_LANES, M_HOURS, root / "m.parquet")
+            lm = counts()
+        finally:
+            restore()
+        stats = pset.last_run_stats
+        if lm["fold_sample"] == 0:
+            raise AssertionError("(m): K1 was not launched")
+        if len(pset) != M_LANES or int((pset.state >= tp.StatusCode.Error).sum()):
+            raise AssertionError("(m): particles were lost or ended in an error state")
+        if not (np.isfinite(pset.x).all() and np.isfinite(pset.y).all()):
+            raise AssertionError("(m): non-finite positions")
+        if not (pset.t == np.float32(M_HOURS * 3600.0)).all():
+            raise AssertionError("(m): the clock did not land on 6 h")
+        k1_line = k1_on_path("(m)", seen)
+        rows = m_times(tp, root / "m.parquet", start, M_HOURS, M_LANES)
+        log(f"[m] {nvidia_smi()}: {M_SHAPE} 360_day from {start.isoformat()}, {M_LANES} "
+            f"particles RK4 dt 60 s {M_HOURS} h, hourly output ({rows} rows read back as "
+            f"360_day CFDatetime, the last {(start + timedelta(hours=M_HOURS)).isoformat()}): "
+            f"particle_steps_per_s {stats['particle_steps_per_s']} wall_s {stats['wall_s']}; "
+            f"launches {lm}; {k1_line}")
+        del pset, seen
+        t_m = time.perf_counter() - t0
+
+        # the card against the CPU: (m)'s first hour at 64K particles
+        fs_mc = tp.FieldSet.from_sgrid_conventions(ds_m, mesh="flat", device="cpu")
+        sets = {}
+        for dev_name, fs in (("cuda", fs_m), ("cpu", fs_mc)):
+            sets[dev_name] = m_run(tp, fs, M_CPU_LANES, 1, root / f"m64k_{dev_name}.parquet")
+        dm = same_sets("(m) card vs CPU", sets["cuda"], sets["cpu"])
+        df_ = same_parquet("(m) files", root / "m64k_cuda.parquet", root / "m64k_cpu.parquet")
+        m_times(tp, root / "m64k_cpu.parquet", start, 1, M_CPU_LANES)
+        del fs_m, fs_mc, ds_m, sets
+        t_mc = time.perf_counter() - t0 - t_m
+        parts = [f"(m) 1 h: max |dx| {dm:.3g} m, files equal (max {df_:.3g})"]
+
+        # the engine tier's cases: the sub-second dt for an hour on the card,
+        # landing exactly (the day past the cliff lands exactly in both
+        # packages' CPU runs, tests/test_torch_engine.py), then both clock
+        # cases cut short on both devices
+        secs = {"m 1M cuda": round(t_m, 1), "m 64K cuda+cpu": round(t_mc, 1)}
+
+        def timed(device, case, full=True):
+            t = time.perf_counter()
+            pset = engine_case(tp, device, case, full)
+            secs[f"{case}{'' if full else ' cut'} {device}"] = round(time.perf_counter() - t, 1)
+            return pset
+
+        full = timed("cuda", "subsecond")
+        if not (full.t == np.float32(3600.0)).all():
+            raise AssertionError(f"subsecond: t {np.unique(full.t)} did not land on 3600 s")
+        for case, cut in (("cliff", CLIFF_T0_S + 1800.0), ("subsecond", 60.0)):
+            a, b = (timed(d, case, full=False) for d in ("cuda", "cpu"))
+            if not (a.t == np.float32(cut)).all():
+                raise AssertionError(f"{case}: t {np.unique(a.t)} did not land on {cut}")
+            parts.append(f"{case}: cut short, lands on {cut} s on both, t bit for bit, "
+                         f"max |dx| {same_sets(case, a, b):.3g} m")
+        parts.append("subsecond: the card's hour lands on 3600.0 s exactly")
+        for case in ("backward", "stop_all", "delete"):
+            a, b = (timed(d, case) for d in ("cuda", "cpu"))
+            d_ = same_sets(case, a, b)
+            if case == "backward" and not (a.t == 0.0).all():
+                raise AssertionError("backward: the clock did not return to 0")
+            if case == "stop_all" and not ((a.state == tp.StatusCode.StopAllExecution).all()
+                                           and (a.t <= 7200.0).all()):
+                raise AssertionError("stop_all: the run did not stop after an hour")
+            if case == "delete" and not 0 < len(a) < M_CPU_LANES:
+                raise AssertionError(f"delete: {len(a)} of {M_CPU_LANES} lanes live")
+            parts.append(f"{case}: {len(a)} live, max |dx| {d_:.3g} m")
+        log(f"[behaviour] card vs CPU at {M_CPU_LANES} particles, states, ids and clocks "
+            f"equal, positions within rtol 1e-5: {'; '.join(parts)}; seconds {secs}, the "
+            f"phase {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return lm
+
+
 def mark(t_start, done: str):
     log(f"[time] {done} done at {time.perf_counter() - t_start:.1f} s")
 
@@ -3217,6 +3493,10 @@ def main() -> int:
     mark(t_start, "phase 21")
     p22 = p22_phase(torch, tp)
     mark(t_start, "phase 22")
+    # 23: the behaviour tiers of the JAX package's tests on the card: (m) on a
+    # 360_day calendar, then the card against the CPU on (m) and the engine cases
+    l23 = behaviour_phase(torch, tp)
+    mark(t_start, "phase 23")
 
     def by_rank(runs, half, kernel):
         return sum(o[f"launches_{half}"][kernel] for o in runs)
@@ -3233,7 +3513,8 @@ def main() -> int:
                                "p22_tiles_4_ranks": sum(r["fold_sample"]
                                                         for r in p22["tiles"]["per_rank"]),
                                "p22_tiles_smooth_4_ranks": sum(
-                                   r["fold_sample"] for r in p22["tiles_smooth"]["per_rank"])},
+                                   r["fold_sample"] for r in p22["tiles_smooth"]["per_rank"]),
+                               "m_360_day": l23["fold_sample"]},
              **k1),
         dict(name="slab_sample", route="cuda", source="parcels_tpu_torch/csrc/slab_sample.cu",
              replaces="parcels_tpu/ops/binned_sample.py:489", launches=lb["slab_sample"],

@@ -309,7 +309,11 @@ def _decode_times_df(df, table, decode_times: bool):
             from parcels_tpu_torch._core.calendars import parse_cf_origin
 
             base = parse_cf_origin(origin, calendar)
-            df["t"] = np.asarray([base + _td(seconds=float(v)) for v in values], dtype=object)
+            # one object a distinct time (a file holds few output times in
+            # many rows); CFDatetime is immutable, so rows may share one
+            times, rows = np.unique(values, return_inverse=True)
+            decoded = np.asarray([base + _td(seconds=float(v)) for v in times], dtype=object)
+            df["t"] = decoded[rows.reshape(-1)]
         else:
             base = np.datetime64(pd.Timestamp(origin))
             df["t"] = base + (values * 1e9).astype("timedelta64[ns]")

@@ -155,8 +155,12 @@ def AdvectionRK45(particles, fieldset):
     particles.next_dt = next_dt
     particles.state = torch.where(good, StatusCode.Evaluate, particles.state).to(torch.int32)
 
+    # a repeated step halves dt, floored at min_dt; an accepted step keeps the
+    # dt it moved by, which the engine adds to the clock (flooring it too, as
+    # the JAX package does, put a lane whose dt was clamped under min_dt at
+    # an endtime up to min_dt past that endtime, its position behind its clock)
     repeat = ~good
     new_dt = torch.where(repeat, dt / 2, dt)
-    new_dt = torch.where(torch.abs(new_dt) < abs(min_dt), min_dt * sign_dt, new_dt)
+    new_dt = torch.where(repeat & (torch.abs(new_dt) < abs(min_dt)), min_dt * sign_dt, new_dt)
     particles.dt = new_dt
     particles.state = torch.where(repeat, StatusCode.Repeat, particles.state).to(torch.int32)

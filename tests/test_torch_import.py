@@ -27,6 +27,7 @@ def test_import_leaves_jax_out():
         "import parcels_tpu_torch.profiling, parcels_tpu_torch.tutorial, parcels_tpu_torch._repr; "
         "import parcels_tpu_torch.datasets.remote, parcels_tpu_torch.datasets.circulation_models; "
         "import parcels_tpu_torch._v3to4, parcels_tpu_torch._decorators, parcels_tpu_torch._strategies; "
+        "import parcels_tpu_torch._typing; "
         "bad = [m for m in ('jax', 'parcels_tpu') if m in sys.modules]; "
         "assert not bad, bad"
     )
