@@ -8,6 +8,13 @@ Run from the root of a checkout, on a machine with a card and nvcc:
 ``python3 chip_smoke.py --k3-ab PATH`` runs instead K3 of this checkout
 against an earlier ``csrc/fused_rk4.cu`` copied to PATH (``k3_ab``): both
 held to the plain version, timed in turns, with their SASS counts.
+``python3 chip_smoke.py --chunking ROOT`` runs instead phase 24's pairs on
+the port of the tree at ROOT, its kernels built from ROOT, and prints the
+lanes whose bits differ without holding them (``chunking_ab``: a reading
+that compares an earlier tree with this one in one call).
+``python3 chip_smoke.py --stream-repeat K`` runs instead (j2) of phase 17
+streamed and from memory K times, each pair and each run against the first
+bit for bit, then phase 18's restart (``stream_repeat``).
 
 Phases (each raises on failure; there is no CPU fallback; every launch
 counter is set to 0 just before a path runs and read just after):
@@ -63,7 +70,10 @@ counter is set to 0 just before a path runs and read just after):
     CROCO sigma-grid RK2 on an idealized CROCO set, and config 3's
     moments at 64K particles; the analytical scheme on the Stommel gyre is
     held on each device to the JAX test's invariants (P conserved, the
-    particles moved) and the card-CPU difference is printed;
+    particles moved) on its three seeds and, on 1021 random seeds beside
+    them, P within 2 % of its largest value, every lane moved and at most
+    20 jumps a lane (no lane stalls on a face), and the card-CPU difference
+    is printed;
 15. (h) the UGRID path at the FESOM2-baroclinic-gyre scale of
     ``scripts/bench_ux.py``: a Delaunay mesh of 1200 x 1200 nodes
     (2,875,202 faces, 1,440,000 nodes, 48 interfaces, node-registered
@@ -108,9 +118,8 @@ counter is set to 0 just before a path runs and read just after):
 18. restart on the card: (j2) streamed for 6 h with hourly Parquet output,
     ``checkpoint``, ``from_checkpoint`` on a freshly opened streamed
     fieldset, 6 more hours, every window held at its first use against the
-    dataset's levels: equal to phase 17's 12 h run (states equal,
-    positions within rtol 1e-6; the largest difference and whether it is
-    bit for bit are printed); ``from_particlefile`` on the output returns
+    dataset's levels: equal to phase 17's 12 h run bit for bit (positions,
+    clocks, dt, states and ids); ``from_particlefile`` on the output returns
     the 6 h snapshot's ids and positions. Then (j2) streamed at 64K
     particles for 2 h on the card and on the CPU: states equal, positions
     within rtol 1e-5, as phase 5;
@@ -198,6 +207,14 @@ counter is set to 0 just before a path runs and read just after):
     minute (``t`` landing exactly, bit for bit), backward in time to the start
     (the engine tier's closed form), ``StopAllExecution`` and the Delete
     recovery kernel.
+24. one run, any chunking (``chunking_phase``): on 4(b)'s field, RK4_3D and
+    Euler-Maruyama (Kh 100 m^2/s) at 2,007,040 particles for 20 steps and
+    Euler-Maruyama at 4,194,304 (two blocks) for 6 steps, each in chunks of
+    64 steps with the wall clock off and in chunks of at most 3 with it on:
+    every pair bit for bit in positions, clocks, dt, states and ids, K2
+    launched in both, and K2 held bit for bit against its plain version
+    and against the plain gather (``_gather16``) on the live lanes of the
+    RK4_3D run's last recorded stage, with its overflow share.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Field data and
@@ -227,6 +244,11 @@ FP32_OPS_PER_S = 67e12
 OPS_PER_LANE = 8 * 3 + 16 * 5
 #: 2M particles padded to the engine's lane count (multiples of 8192)
 K2_LANES = -(-2_000_000 // 8192) * 8192
+#: f32 operations per K2 lane: 4 weights (1 - bcoord) and 16 corners (4
+#: multiplies, 1 add), as the plain gather's stencil takes them
+K2_OPS_PER_LANE = 4 + 16 * 5
+#: bytes a K2 lane reads (4 int32 cell indices, 4 f32 bcoords) and writes (1 f32)
+K2_LANE_BYTES = 4 * 4 + 4 * 4 + 4
 
 
 def log(*a):
@@ -464,10 +486,11 @@ def k2_phase(torch, dev):
     vals = bs.binned_linear_sample(data, gpos)
     g16 = bs._gather16(data, bs._gather_lanes(gpos))
     err16 = float((vals - g16).abs().max())
-    # tolerance of the reference's own tests (rtol 2e-4 / atol 2e-5): K2
-    # carries each slab-relative position as one f32
-    if not torch.allclose(vals, g16, rtol=2e-4, atol=2e-5):
-        raise AssertionError(f"K2 + fix-up disagrees with the plain gather: {err16}")
+    # K2 takes the plain gather's stencil from each lane's own cell index, so
+    # the lanes it keeps, and with its fix-up every lane, equal the gather
+    live = ~plan["overflow"]
+    if not same_bits(torch, out[live], g16[live]) or not same_bits(torch, vals, g16):
+        raise AssertionError(f"K2 (+ fix-up) is not bit for bit the plain gather: {err16}")
     share = plan["count"] / n
     ms = cuda_ms(torch, lambda: bs.slab_sample(data, plan))
     queued_ms = cuda_ms(torch, lambda: bs.slab_sample(data, plan), queued=True)
@@ -476,8 +499,8 @@ def k2_phase(torch, dev):
     pos = [gpos[ax]["index"].float() + gpos[ax]["bcoord"] for ax in "TZYX"]
     plan_bytes = sum(a.numel() * 4 for a in (plan["t0"], plan["shalf"], plan["z0w"], plan["live"]))
     plan_bytes += sum(a.numel() * 4 for a in plan["origins"].values())
-    nbytes = touched_field_bytes(torch, shape, pos) + plan["npad"] * 20 + plan_bytes
-    bound_ms, bound_by = bound(nbytes, plan["npad"] * OPS_PER_LANE)
+    nbytes = touched_field_bytes(torch, shape, pos) + n * K2_LANE_BYTES + plan_bytes
+    bound_ms, bound_by = bound(nbytes, n * K2_OPS_PER_LANE)
     counter = torch.zeros(1, dtype=torch.int64, device=dev)
     bs.slab_sample(data, plan, counter)
     staged = int(counter)
@@ -487,7 +510,8 @@ def k2_phase(torch, dev):
     log(f"[K2] shape {shape} lanes {n}: geometry (WT,SZ,SY,SX,bz,by,bx)={geom} feasible {feasible}, "
         f"window {4 * geom[0] * plan['WZ'] * geom[2] * geom[3]} B, ring of "
         f"{bs.ring_planes(geom)} planes, overflow share {share:.4f}; max abs err vs plain {err:.3g}, "
-        f"K2+fix-up vs gather {err16:.3g}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, K2+plan "
+        f"K2 on its {int(live.sum())} kept lanes and K2+fix-up on all equal the plain gather bit "
+        f"for bit; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, K2+plan "
         f"fix-up {fixed_ms:.4f} ms, kernel queued behind a spin (device time alone) "
         f"{queued_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, {nbytes} B); staged "
         f"{staged} B a call as the kernel counted its copies ({staged / 1e6:.1f} MB; "
@@ -1257,12 +1281,26 @@ def analytical_run(tp, fs, seeds, dt_h, hours):
     return pset
 
 
-#: the JAX package's Stommel seeds (tests/test_advection.py). Random seeds
-#: in the gyre can stall: a lane within one f32 step of a face takes a
-#: transit of a few seconds that leaves its position unchanged, and repeats
-#: it to the end of the run, one engine iteration each time (the JAX
-#: scheme's f32 tolerance, ported as it is)
+#: the JAX package's Stommel seeds (tests/test_advection.py)
 STOMMEL_SEEDS = dict(x=np.array([3e6, 4e6, 5e6]), y=np.array([3e6, 5e6, 7e6]))
+#: random gyre seeds run beside them. In the JAX package's f32 scheme a lane
+#: within one f32 step of a face can stall there (a transit of seconds that
+#: leaves its position unchanged, repeated to the end of the run); the port
+#: moves such a lane one f32 step past the face (kernels/analytical.py
+#: _cross_stalled_faces), so every lane ends in a bounded number of jumps
+STOMMEL_RANDOM, STOMMEL_MAX_JUMPS = 1021, 20
+
+
+def stommel_seeds(seed=14):
+    """The three fixed Stommel seeds, then ``STOMMEL_RANDOM`` random ones."""
+    rng = np.random.default_rng(seed)
+    return {k: np.concatenate([v, rng.uniform(1e6, 9e6, STOMMEL_RANDOM)])
+            for k, v in STOMMEL_SEEDS.items()}
+
+
+def count_jumps(particles, fieldset):
+    """The engine iterations (one analytical jump each) a lane took."""
+    particles.jumps = particles.jumps + 1.0
 
 
 def croco_run(tp, fs, n=1024):
@@ -1306,31 +1344,48 @@ def card_cpu_phase(torch, tp, ds_b):
 
     # the Stommel gyre: the JAX test's asserts on each device (the
     # streamfunction P is conserved along the trajectories, the particles
-    # moved). Card against CPU is reported, not held: a lane that ends a
-    # jump within one f32 step of a face stays on it or not with the last
-    # bit of exp and log, as the JAX package's jitted and eager runs differ.
-    # Each jump's start is recorded to show where the devices part
+    # moved) on its three seeds, and on random seeds beside them P within 2 %
+    # of its largest value, every lane moved and none past STOMMEL_MAX_JUMPS
+    # jumps (no face stall). Card against CPU is reported, not held: where a
+    # jump ends within one f32 step of a face follows the last bit of exp
+    # and log, as the JAX package's jitted and eager runs differ. Each jump's
+    # start is recorded for the fixed seeds, to show where the devices part
     st, jumps = {}, {}
+    seeds = stommel_seeds()
+    nfix, nall = len(STOMMEL_SEEDS["x"]), len(seeds["x"])
+    pclass = tp.Particle.add_variable(tp.Variable("jumps", dtype=np.float32))
     for d in ("cuda", "cpu"):
         fs = stommel_fieldset(tp, d)
         jumps[d] = []
-        pset = tp.ParticleSet(fs, t=np.zeros(3), **STOMMEL_SEEDS)
-        pset.execute([recorder(torch, jumps[d]), tp.AdvectionAnalytical], dt=np.timedelta64(6, "h"),
-                     runtime=np.timedelta64(48, "h"))
-        p0 = sample_p(torch, fs, STOMMEL_SEEDS["x"], STOMMEL_SEEDS["y"])
+        pset = tp.ParticleSet(fs, pclass=pclass, t=np.zeros(nall), **seeds)
+        pset.execute([recorder(torch, jumps[d]), tp.AdvectionAnalytical, count_jumps],
+                     dt=np.timedelta64(6, "h"), runtime=np.timedelta64(48, "h"))
+        p0 = sample_p(torch, fs, seeds["x"], seeds["y"])
         p1 = sample_p(torch, fs, pset.x, pset.y)
-        if not np.allclose(p1, p0, rtol=2e-2) or np.allclose(pset.x, STOMMEL_SEEDS["x"], atol=1.0):
-            raise AssertionError(f"AdvectionAnalytical on the Stommel gyre ({d}): P {p0} -> {p1}, "
-                                 f"x {STOMMEL_SEEDS['x']} -> {pset.x}")
-        st[d] = (pset, float(np.abs(p1 - p0).max() / np.abs(p0).max()))
-    (a, ra), (b, rb) = st["cuda"], st["cpu"]
+        if not np.allclose(p1[:nfix], p0[:nfix], rtol=2e-2) or np.allclose(
+                pset.x[:nfix], STOMMEL_SEEDS["x"], atol=1.0):
+            raise AssertionError(f"AdvectionAnalytical on the Stommel gyre ({d}): P {p0[:nfix]} -> "
+                                 f"{p1[:nfix]}, x {STOMMEL_SEEDS['x']} -> {pset.x[:nfix]}")
+        drift = float(np.abs(p1 - p0).max() / np.abs(p0).max())
+        moved = float(np.hypot(pset.x - seeds["x"], pset.y - seeds["y"]).min())
+        most = float(pset.jumps.max())
+        if drift > 2e-2 or moved < 1.0 or most > STOMMEL_MAX_JUMPS:
+            raise AssertionError(f"AdvectionAnalytical on {nall} Stommel seeds ({d}): P drift "
+                                 f"{drift:.3g} of its largest value, least move {moved:.3g} m, "
+                                 f"most jumps {most}")
+        st[d] = (pset, float(np.abs(p1[:nfix] - p0[:nfix]).max() / np.abs(p0[:nfix]).max()),
+                 drift, most)
+    (a, ra, da, ma), (b, rb, db, mb) = st["cuda"], st["cpu"]
     parted = next(((k, np.abs(u - v).max(axis=0).tolist()) for k, (u, v) in
                    enumerate(zip(jumps["cuda"], jumps["cpu"])) if not np.array_equal(u, v)), None)
-    log(f"[card vs cpu] AdvectionAnalytical on the Stommel gyre, 3 particles, 8 steps of 6 h: "
-        f"P conserved to {ra:.3g} (card), {rb:.3g} (CPU); card x {a.x} y {a.y}, CPU x {b.x} "
-        f"y {b.y}; states equal {bool(np.array_equal(a.state, b.state))}; jumps card "
-        f"{len(jumps['cuda'])}, CPU {len(jumps['cpu'])}; first jump starting apart (index, "
-        f"max |dx|,|dy| per lane): {parted}")
+    apart = int((np.hypot(a.x - b.x, a.y - b.y) > 1e3).sum())
+    log(f"[card vs cpu] AdvectionAnalytical on the Stommel gyre, 8 steps of 6 h: the 3 fixed "
+        f"seeds: P conserved to {ra:.3g} (card), {rb:.3g} (CPU); card x {a.x[:nfix]} y "
+        f"{a.y[:nfix]}, CPU x {b.x[:nfix]} y {b.y[:nfix]}; first jump starting apart (index, max "
+        f"|dx|,|dy| per lane): {parted}; with {STOMMEL_RANDOM} random seeds beside them: P "
+        f"within {da:.3g} (card), {db:.3g} (CPU) of its largest value, at most {ma:.0f} (card), "
+        f"{mb:.0f} (CPU) jumps a lane, states equal {bool(np.array_equal(a.state, b.state))}, "
+        f"{apart} of {nall} lanes more than 1 km apart")
 
     # a 3-D C-grid with uniform (u, 0, w): card against CPU to 1e-4 of the
     # extent (the port-against-JAX tests' tolerance), and the closed form
@@ -1823,8 +1878,10 @@ def restart_phase(torch, tp, ds, path, seeds, kernels, whole, root):
     l2 = counts()
     if l2["slab_sample"] == 0:
         raise AssertionError("restart: K2 was not launched after the restart")
-    dmax = same_run("restart", resumed, whole, rtol=1e-6, atol=0.0)
-    bits = all(np.array_equal(getattr(resumed, v), getattr(whole, v)) for v in ("x", "y", "z"))
+    same_run("restart", resumed, whole, rtol=1e-6, atol=0.0)
+    for v in ("x", "y", "z", "t", "dt", "state", "particle_id"):
+        np.testing.assert_array_equal(getattr(resumed, v), getattr(whole, v),
+                                      err_msg=f"restart against the uninterrupted run: {v}")
 
     restarted = tp.ParticleSet.from_particlefile(streamed_fieldset(tp, path), tp.Particle, out)
     ids = first.particle_id
@@ -1838,9 +1895,52 @@ def restart_phase(torch, tp, ds, path, seeds, kernels, whole, root):
     log(f"[restart j2] {len(rec['keys'] | rec2['keys'])} windows, each equal to the dataset's "
         f"levels on the card; {len(ids)} live particles after {half} h (hourly output, wall_s "
         f"{st1['wall_s']}); checkpoint {ck_s:.2f} s, from_checkpoint {rs_s:.2f} s; 6 more hours "
-        f"equal the uninterrupted 12 h run: states equal, max |position difference| {dmax:.3g} m "
-        f"(bit for bit: {bits}); launches after the restart {l2}; from_particlefile: last "
+        f"equal the uninterrupted 12 h run bit for bit (positions, clocks, dt, states, ids); "
+        f"launches after the restart {l2}; from_particlefile: last "
         f"snapshot's ids and positions")
+
+
+def stream_repeat(torch, tp, reps):
+    """``--stream-repeat K``: (j2) of phase 17 streamed and then the same
+    windows from memory, K times in turns, each pair and each run against
+    the first held bit for bit (the differing lanes printed), then phase
+    18's restart against the first streamed run."""
+    from parcels_tpu_torch.io import write_zarr_dataset
+
+    root = stream_dir()
+    shutil.rmtree(root, ignore_errors=True)
+    apart_any = []
+    try:
+        ds = j2_dataset()
+        path = os.path.join(root, "j2.zarr")
+        write_zarr_dataset(ds, path)
+        kernels = [tp.AdvectionRK4_3D, delete_oob]
+        seeds = stream_seeds(tp.FieldSet.from_sgrid_conventions(ds, mesh="flat"), J2_LANES,
+                             seed=6, zrange=(10.0, 490.0))
+        first = None
+        for rep in range(reps):
+            s_set, s_l, s_st, _ = timed_run(torch, tp, streamed_fieldset(tp, path), seeds, kernels,
+                                            J2_DT, J2_HOURS)
+            fs = tp.FieldSet.from_sgrid_conventions(ds, mesh="flat")
+            fs.set_time_window(WINDOW)
+            m_set, _, m_st, _ = timed_run(torch, tp, fs, seeds, kernels, J2_DT, J2_HOURS)
+            del fs
+            pair = lanes_apart(s_set, m_set)
+            again = lanes_apart(s_set, first) if first is not None else None
+            log(f"[stream repeat {rep}] (j2) {J2_LANES} particles, {J2_HOURS} h at dt {J2_DT} s: "
+                f"streamed particle_steps_per_s {s_st['particle_steps_per_s']} (K2 launches "
+                f"{s_l['slab_sample']}), the same windows from memory "
+                f"{m_st['particle_steps_per_s']}; lanes whose bits differ, streamed against "
+                f"memory {pair}, against the first streamed run {again}")
+            apart_any += [v for v in (pair, again or {}) if any(v.values())]
+            first = first if first is not None else s_set
+            del m_set
+            torch.cuda.empty_cache()
+        restart_phase(torch, tp, ds, path, seeds, kernels, first, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if apart_any:
+        raise AssertionError(f"(j2) runs differ: {apart_any}")
 
 
 def stream_card_cpu(tp, path, kernels):
@@ -2050,6 +2150,13 @@ def k2_on_path(torch, what, seen):
     if not same_bits(torch, out, ref):
         raise AssertionError(f"{what}: K2 is not bit for bit equal to its plain version at "
                              f"{shape4}, {n} lanes: max abs err {err}")
+    live = ~plan["overflow"]
+    if gpos.get("active") is not None:
+        live = live & gpos["active"][:n]
+    g16 = bs._gather16(data, bs._gather_lanes(gpos))
+    if not same_bits(torch, out[live], g16[live]):
+        raise AssertionError(f"{what}: K2 is not bit for bit the plain gather on its live lanes "
+                             f"at {shape4}, {n} lanes")
     k_big = min(n, max(4096, n // bs._K_BIG_DIV))
     if plan["count"] > k_big:
         raise AssertionError(f"{what}: {plan['count']} of {n} lanes overflow K2's slabs (fix-up "
@@ -2057,7 +2164,8 @@ def k2_on_path(torch, what, seen):
     ms = cuda_ms(torch, lambda: bs.slab_sample(data, plan), reps=10)
     return (f"K2 at {shape4} on {n} engine-sorted lanes (geometry {bs.slab_geometry(shape4, n)}, "
             f"{plan['npad'] // bs.CHUNK} chunks, overflow share {plan['count'] / n:.5f}): bit for "
-            f"bit equal to its plain version (max abs err {err:.3g}), {ms:.4f} ms; sampler calls "
+            f"bit equal to its plain version (max abs err {err:.3g}) and, on its {int(live.sum())} "
+            f"live lanes, to the plain gather, {ms:.4f} ms; sampler calls "
             f"by (shape, lanes): {seen['calls']}")
 
 
@@ -3266,6 +3374,99 @@ def behaviour_phase(torch, tp):
     return lm
 
 
+#: phase 24 on (b)'s field: (name, particles, kernel, Kh in m^2/s, steps at dt 60 s). Each
+#: runs in chunks of 64 steps with the wall clock off and in chunks of 3 (the
+#: first 2 steps, then as the measured step time says, capped at 3); 2^22
+#: particles run as two blocks of 2^21 lanes
+CHUNKING_PAIRS = (
+    ("b RK4_3D", K2_LANES, "AdvectionRK4_3D", 0.0, 20),
+    ("f EM", K2_LANES, "AdvectionDiffusionEM", KH3, 20),
+    ("f EM, two blocks", 1 << 22, "AdvectionDiffusionEM", KH3, 6),
+)
+#: the variables a pair holds bit for bit
+CHUNKING_VARS = ("x", "y", "z", "t", "dt", "state", "particle_id")
+
+
+def b_dataset():
+    """(b)'s (2, 50, 500, 500) U/V/W field."""
+    return flat_dataset((2, 50, 500, 500), extent=(1e6, 1e6), seed=5, w_scale=3e-4)
+
+
+def chunk_run(tp, fs, n, kernel, steps, options, seed=24):
+    """One execute on ``fs`` from seeded positions over the middle 80 % of the
+    grid at 10-490 m; (pset, launches, stats, binned calls)."""
+    pset = tp.ParticleSet(fs, **stream_seeds(fs, n, seed, zrange=(10.0, 490.0)))
+    seen, restore = binned_calls()
+    zero_counts()
+    try:
+        pset.execute(getattr(tp, kernel), dt=np.timedelta64(60, "s"),
+                     runtime=np.timedelta64(60 * steps, "s"), options=options)
+    finally:
+        restore()
+    if int((pset.state >= tp.StatusCode.Error).sum()) or len(pset) != n:
+        raise AssertionError(f"{kernel}: particles lost or ended in an error state")
+    return pset, counts(), pset.last_run_stats, seen
+
+
+def lanes_apart(a, b) -> dict:
+    """Per variable, the number of lanes whose bits differ between two runs."""
+    out = {}
+    for v in CHUNKING_VARS:
+        u, w = np.asarray(getattr(a, v)), np.asarray(getattr(b, v))
+        same = u.view(np.uint8).reshape(len(u), -1) == w.view(np.uint8).reshape(len(w), -1)
+        out[v] = int((~same.all(axis=1)).sum())
+    return out
+
+
+def chunking_phase(torch, tp, ds_b, hold=True):
+    """Phase 24: one run, any chunking. Each of ``CHUNKING_PAIRS`` runs in
+    chunks of 64 steps (``chunk_target_seconds=0``) and of at most 3 steps
+    (the wall-clock sizing on); the two runs must be equal bit for bit. K2
+    must launch in both. Then K2 is held against its plain version and the
+    plain gather bit for bit on the live lanes of the (b) run's last
+    recorded stage. With ``hold`` False (a tree without the repair) the
+    differing lanes are printed instead. Returns K2's launches by pair."""
+    out = {}
+    for name, n, kernel, kh, steps in CHUNKING_PAIRS:
+        fs = fs_b_with(tp, ds_b, kh)
+        runs = {}
+        for cap, target in ((64, 0), (3, 20.0)):
+            runs[cap] = chunk_run(tp, fs, n, kernel, steps,
+                                  tp.EngineOptions(max_chunk_steps=cap, chunk_target_seconds=target))
+        (a, la, sa, seen), (b, lb, sb, _) = runs[64], runs[3]
+        apart = lanes_apart(a, b)
+        k2 = [la["slab_sample"], lb["slab_sample"]]
+        log(f"[chunking] {name}: {n} particles, {kernel}, Kh {kh} m^2/s, {steps} steps of 60 s: "
+            f"chunks of 64 steps, {sa['chunks']} chunks, particle_steps_per_s "
+            f"{sa['particle_steps_per_s']} (wall_s {sa['wall_s']}); chunks of at most 3, "
+            f"{sb['chunks']} chunks, particle_steps_per_s {sb['particle_steps_per_s']} (wall_s "
+            f"{sb['wall_s']}); K2 launches {k2}; lanes whose bits differ: {apart}")
+        if min(k2) == 0:
+            raise AssertionError(f"phase 24 {name}: K2 was not launched")
+        if hold and any(apart.values()):
+            raise AssertionError(f"phase 24 {name}: the chunkings differ on {apart} lanes")
+        if hold and name.startswith("b "):
+            log(f"[chunking] {name}: {k2_on_path(torch, f'phase 24 {name}', seen)}")
+        out[name] = dict(launches=k2[0], rate=sa["particle_steps_per_s"], apart=apart)
+        del fs, runs, a, b, seen
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def chunking_ab(torch, root):
+    """``--chunking ROOT``: phase 24's pairs on the port at ``ROOT`` (this
+    checkout or an earlier one), its kernels built from ``ROOT``, the
+    differing lanes printed and not held; a reading for comparing trees in
+    one call."""
+    import parcels_tpu_torch as tp
+    from parcels_tpu_torch.ops import _build
+
+    log(f"[chunking] the port at {root} ({tp.__file__}); build {_build.build_all():.2f} s")
+    res = chunking_phase(torch, tp, b_dataset(), hold=False)
+    log(json.dumps({"chunking": res, "root": root}))
+
+
 def mark(t_start, done: str):
     log(f"[time] {done} done at {time.perf_counter() - t_start:.1f} s")
 
@@ -3276,7 +3477,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on a card", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    here = os.path.dirname(os.path.abspath(__file__))
+    # ``--chunking ROOT`` runs the port of another tree
+    sys.path.insert(0, sys.argv[2] if sys.argv[1:2] == ["--chunking"] else here)
     import parcels_tpu_torch as tp
     from parcels_tpu_torch.ops import _build
 
@@ -3286,6 +3489,13 @@ def main() -> int:
     dev = torch.device("cuda")
     if len(sys.argv) == 3 and sys.argv[1] == "--k3-ab":
         k3_ab(torch, tp, sys.argv[2])
+        return 0
+    if len(sys.argv) == 3 and sys.argv[1] == "--chunking":
+        chunking_ab(torch, sys.argv[2])
+        return 0
+    if len(sys.argv) == 3 and sys.argv[1] == "--stream-repeat":
+        _build.build_all()
+        stream_repeat(torch, tp, int(sys.argv[2]))
         return 0
 
     build_s = _build.build_all()
@@ -3497,6 +3707,9 @@ def main() -> int:
     # 360_day calendar, then the card against the CPU on (m) and the engine cases
     l23 = behaviour_phase(torch, tp)
     mark(t_start, "phase 23")
+    # 24: one run, any chunking, on (b)'s field (K2 on the path)
+    l24 = chunking_phase(torch, tp, b_dataset())
+    mark(t_start, "phase 24")
 
     def by_rank(runs, half, kernel):
         return sum(o[f"launches_{half}"][kernel] for o in runs)
@@ -3528,7 +3741,9 @@ def main() -> int:
                                "k_card_vs_cpu": l_kc["slab_sample"],
                                "l_first_4_ranks": by_rank(l21["outs"], "first", "slab_sample"),
                                "l_second_4_ranks": by_rank(l21["outs"], "second",
-                                                           "slab_sample")}, **k2),
+                                                           "slab_sample"),
+                               **{f"chunking {k}": v["launches"] for k, v in l24.items()}},
+             **k2),
         dict(name="fused_rk4", route="cuda", source="parcels_tpu_torch/csrc/fused_rk4.cu",
              replaces="scripts/bench_fused_rk4.py:134", launches=k9["launches"],
              launches_by_path={"k3_path": k9["launches"]}, **k3),

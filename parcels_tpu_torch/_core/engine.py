@@ -25,7 +25,7 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
-from parcels_tpu_torch._core.particles_view import Particles, split_key
+from parcels_tpu_torch._core.particles_view import Particles
 from parcels_tpu_torch._core.statuscodes import MIN_ERROR_CODE, StatusCode
 
 __all__ = ["DEFAULT_BLOCK_SIZE", "RESORT_EVERY", "compute_loop_masks", "engine_step", "run_chunk"]
@@ -169,12 +169,13 @@ def run_chunk(
     sorting = sort_field is not None and _sort_worthwhile(
         fieldset, sort_field, min(n, block_size), z_occ
     )
+    # every lane carries its set position through every (re)sort and block:
+    # the final unsort reads it, and each random draw is keyed by it
+    # (particles_view), so neither the lane order nor the blocks change a value
+    pdata = dict(pdata)
+    pdata["_ord"] = torch.arange(n, dtype=torch.int32, device=pdata["state"].device)
     resort = None
     if sorting:
-        # carry the original lane index through every (re)sort so the final
-        # unsort works whatever permutation the inner loop applied
-        pdata = dict(pdata)
-        pdata["_ord"] = torch.arange(n, dtype=torch.int32, device=pdata["state"].device)
         pdata, _ = _sort_soa(fsview, sort_field, pdata, z_occ)
         resort = lambda pd: _sort_soa(fsview, sort_field, pd, z_occ)[0]  # noqa: E731
 
@@ -191,27 +192,21 @@ def run_chunk(
                 f"Particle count {n} must be a multiple of block_size {block_size} "
                 "(the ParticleSet pads with inactive lanes)."
             )
-        # each block draws from its own key, split from the SoA key as the
-        # JAX engine splits it; the merged key is block 0's. The split happens
-        # at every chunk, so with more than one block the streams depend on
-        # the chunk lengths (ParticleSet.execute holds them at their cap
-        # unless a step takes longer than the chunk target over the cap).
-        nblocks = n // block_size
-        keys = split_key(pdata["_rng"], nblocks)
+        # blocks are independent: a lane's draws depend on its key, set
+        # position and clock, not on the block it falls in (the JAX engine
+        # splits the key per block at every chunk, which ties the streams to
+        # the chunk lengths)
         outs = []
-        for b in range(nblocks):
+        for b in range(n // block_size):
             sl = slice(b * block_size, (b + 1) * block_size)
-            outs.append(block({
-                k: keys[b] if k == "_rng" else (v if v.dim() == 0 else v[sl])
-                for k, v in pdata.items()
-            }))
+            outs.append(block({k: v if (k == "_rng" or v.dim() == 0) else v[sl]
+                               for k, v in pdata.items()}))
         out = {
             k: outs[0][k] if (k == "_rng" or v.dim() == 0) else torch.cat([o[k] for o in outs])
             for k, v in outs[0].items()
         }
-    if sorting:
-        out = _unsort_soa(out, out.pop("_ord"))
-    return out
+    order = out.pop("_ord")
+    return _unsort_soa(out, order) if sorting else out
 
 
 def rk45_chunk_start_dt(fsview, pdata, sign_dt):
@@ -291,13 +286,15 @@ def engine_step(
         stagecache.flush(fsview, pd)
         stagecache.reset(fsview)
 
-    for f in kernel_fns:
-        call(Particles(pd, eval_mask, sorted_hint, z_occ))
+    for fi, f in enumerate(kernel_fns):
+        call(Particles(pd, eval_mask, sorted_hint, z_occ, stream=(fi, 0)))
+        rounds = 0
         while True:
             repeat = pd["_active"] & (pd["state"] == StatusCode.Repeat)
             if not bool(repeat.any()):
                 break
-            call(Particles(pd, repeat, sorted_hint, z_occ))
+            rounds += 1
+            call(Particles(pd, repeat, sorted_hint, z_occ, stream=(fi, rounds)))
 
     # position/time update for lanes still in a normal state
     # (reference kernel.py:108-120, 222-224)

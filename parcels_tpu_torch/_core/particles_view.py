@@ -14,15 +14,21 @@ snapshots included.
 
 Random draws: the SoA's ``_rng`` is a (2,) uint32 key, as in the JAX
 package, kept on the host (a CPU tensor) so that a draw needs no device
-read. Every draw splits it (``split_key``, a counter-free hash through
-``numpy.random.SeedSequence``) into the carried key and a subkey that seeds
-a ``torch.Generator`` on the lanes' device (Philox on the card, mt19937 on
-the CPU). The streams are deterministic per seed and device, but are not
-the JAX package's threefry streams.
+read. A draw is counter-based: each lane's value is a hash of the key, the
+draw's place in the step (the kernel's index in the chain, its Repeat
+round, the draw's index in the call), the lane's set position (the
+engine's ``_ord`` column; the lane's index where there is none) and its
+clock ``t``. So the particle at set position i gets the same draw at the
+same time whatever the SoA's order, the blocks, the chunk lengths or the
+split of the run into ``execute`` calls and restarts, and the key never
+changes. The streams are not the JAX package's threefry streams (which
+split the key per draw and per block at every chunk); the moments are what
+agree.
 """
 
 from __future__ import annotations
 
+import math
 import operator
 
 import numpy as np
@@ -63,25 +69,36 @@ def split_key(key, num: int = 2) -> list:
     return [torch.from_numpy(state[2 * i:2 * i + 2].copy()) for i in range(num)]
 
 
-def _generator(key, device) -> torch.Generator:
-    k0, k1 = (int(w) for w in np.asarray(key, dtype=np.uint32))
-    g = torch.Generator(device=device)
-    g.manual_seed((k0 << 32) | k1)
-    return g
+_M32 = 0xFFFFFFFF
+
+
+def _hash32(h):
+    """A 32-bit mixing bijection of int64 tensors that hold 32-bit values
+    (a two-round multiply-xorshift hash; both multipliers are below 2^31, so
+    no product leaves the int64 range)."""
+    h = h ^ (h >> 16)
+    h = (h * 0x21F0AAAD) & _M32
+    h = h ^ (h >> 15)
+    h = (h * 0x735A2D97) & _M32
+    return h ^ (h >> 15)
 
 
 class Particles:
     """Masked write-through view over the particle SoA used inside kernels."""
 
-    __slots__ = ("_data", "_mask", "_sorted_hint", "_z_occ_hint")
+    __slots__ = ("_data", "_mask", "_sorted_hint", "_z_occ_hint", "_stream", "_draws")
 
-    def __init__(self, data: dict, mask, sorted_hint: bool = False, z_occ_hint=None):
+    def __init__(self, data: dict, mask, sorted_hint: bool = False, z_occ_hint=None,
+                 stream=(0, 0)):
         object.__setattr__(self, "_data", data)
         object.__setattr__(self, "_mask", mask)
         # the engine keeps the SoA spatially sorted (binned slab sampler)
         object.__setattr__(self, "_sorted_hint", sorted_hint)
         # quantized occupied-z fraction of the batch (binned-sampler planning)
         object.__setattr__(self, "_z_occ_hint", z_occ_hint)
+        # this call's place in the step: (kernel index in the chain, Repeat round)
+        object.__setattr__(self, "_stream", tuple(stream))
+        object.__setattr__(self, "_draws", 0)
 
     def __getattr__(self, name):
         try:
@@ -117,23 +134,35 @@ class Particles:
         ei[:, igrid] = new_col
         self._data["ei"] = ei
 
-    def _draw(self):
-        """Split the SoA key; a generator on the lanes' device seeded from
-        the subkey."""
+    def _words(self, count: int):
+        """``count`` random 32-bit words per lane (int64 tensors), from the
+        key, this draw's place in the step, each lane's set position and clock."""
         d = self._data
-        d["_rng"], sub = split_key(d["_rng"])
-        return _generator(sub, d["state"].device)
+        place = [*self._stream, self._draws]
+        object.__setattr__(self, "_draws", self._draws + 1)
+        key = [int(w) for w in np.asarray(d["_rng"], dtype=np.uint32).reshape(2)]
+        salt = np.random.SeedSequence(key + place).generate_state(count + 1, np.uint32)
+        n, dev = d["state"].shape[0], d["state"].device
+        pos = d["_ord"] if "_ord" in d else torch.arange(n, device=dev)
+        t = d["t"] if "t" in d else torch.zeros(n, device=dev)
+        clock = t.to(torch.float32).contiguous().view(torch.int32).to(torch.int64) & _M32
+        h = _hash32(_hash32(pos.to(torch.int64) ^ int(salt[0])) ^ clock)
+        return [_hash32(h ^ int(w)) for w in salt[1:]]
 
     def random_normal(self, dtype=torch.float32):
         """Per-particle standard normals from the engine RNG (reference
-        kernels/_advectiondiffusion.py:37 draws np.random.normal)."""
-        n, dev = self._data["state"].shape[0], self._data["state"].device
-        return torch.randn(n, generator=self._draw(), device=dev, dtype=dtype)
+        kernels/_advectiondiffusion.py:37 draws np.random.normal): Box-Muller
+        on two 24-bit uniforms."""
+        a, b = self._words(2)
+        u1 = ((a >> 8) + 1).to(torch.float32) * 2.0**-24  # (0, 1]
+        u2 = (b >> 8).to(torch.float32) * 2.0**-24
+        z = torch.sqrt(-2.0 * torch.log(u1)) * torch.cos((2.0 * math.pi) * u2)
+        return z.to(dtype)
 
     def random_uniform(self, dtype=torch.float32):
-        """Per-particle uniform [0, 1) draws from the engine RNG."""
-        n, dev = self._data["state"].shape[0], self._data["state"].device
-        return torch.rand(n, generator=self._draw(), device=dev, dtype=dtype)
+        """Per-particle uniform [0, 1) draws (24 bits) from the engine RNG."""
+        (a,) = self._words(1)
+        return ((a >> 8).to(torch.float32) * 2.0**-24).to(dtype)
 
     def __len__(self):
         return self._data["state"].shape[0]

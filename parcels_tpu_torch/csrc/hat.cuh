@@ -1,8 +1,8 @@
-// Shared device helpers of the multilinear hat samplers (K1, K2).
+// Device helpers of the multilinear hat sampler K1.
 //
 // Every product and sum goes through the round-to-nearest intrinsics so the
-// compiler cannot contract them into FMAs: the kernels then reproduce their
-// plain PyTorch versions (which round every operation) bit for bit, and a
+// compiler cannot contract them into FMAs: the kernel then reproduces its
+// plain PyTorch version (which rounds every operation) bit for bit, and a
 // disagreement on the card is a fault, never a rounding difference.
 #pragma once
 

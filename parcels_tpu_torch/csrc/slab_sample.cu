@@ -6,12 +6,12 @@
 // into VMEM per chunk and contracts hat weights against them on the TPU's
 // matrix unit in a bf16 hi/lo split.
 //
-// What bounds it on the card: bytes and latency. Per lane it reads four f32
-// positions and writes one f32; per 128-lane sub-block it needs a
-// (WT, WZ, SY, SX) window of a field larger than the 50 MB L2. Staging a
-// whole window at every window change stages 4.5 times the field at path
-// (b)'s shape, and a block that stages and samples one sub-block at a time
-// spends most of its time waiting on loads. The design:
+// What bounds it on the card: bytes and latency. Per lane it reads its four
+// int32 cell indices and four f32 bcoords and writes one f32; per 128-lane
+// sub-block it needs a (WT, WZ, SY, SX) window of a field larger than the
+// 50 MB L2. Staging a whole window at every window change stages 4.5 times
+// the field at path (b)'s shape, and a block that stages and samples one
+// sub-block at a time spends most of its time waiting on loads. The design:
 //
 // - a ring of RZ >= WZ z-planes (x WT x SY x SX floats) in shared memory;
 //   field plane z lives in slot z % RZ;
@@ -38,15 +38,23 @@
 // Plan inputs (per chunk g, per sub-block s): t0[g]; slab origins
 // (z1, y1, x1) and (z2, y2, x2)[g]; shalf[g*NS+s] picks the slab half;
 // z0w[g*NS+s] offsets the z window inside it; live[g] == 0 marks a chunk with
-// no live lane, which writes 0. Positions are relative to each lane's own
-// slab origin. Lanes outside their sub-block's window keep the partial sum of
-// the corners inside it; the plan flags them as overflow and the caller
-// repairs them with a plain gather. The sum keeps hat.cuh's order, so the
-// kernel equals its plain version (ops/binned_sample.slab_sample_plain) bit
-// for bit.
+// no live lane, which writes 0. Per lane: its (t, z, y, x) cell index and
+// bcoord, as the search gave them.
+//
+// A lane takes the plain gather's stencil (ops/binned_sample._gather16):
+// corners clamp(index + k, 0, dim - 1), weights 1 - bcoord and bcoord (one
+// corner of weight 1 on an axis of one point), each corner's value times
+// the t, z, y and x weights in that order, summed in corner order from the
+// first term. Its window-relative corner is the integer corner less the
+// window's origin, so the value does not depend on the window: a lane whose
+// corners all lie in its window gets the gather's bits, whichever chunk or
+// tier serves it. A corner outside the window reads 0; the plan flags such
+// lanes as overflow and the caller replaces them with the gather. Every
+// product and sum is rounded on its own (no FMA), so the kernel equals its
+// plain version (ops/binned_sample.slab_sample_plain) bit for bit.
 #include <cstdint>
 
-#include "hat.cuh"
+#include <cuda_runtime.h>
 
 namespace {
 
@@ -172,9 +180,10 @@ __global__ void __launch_bounds__(THREADS) slab_sample_kernel(
     const int* __restrict__ z1, const int* __restrict__ y1, const int* __restrict__ x1,
     const int* __restrict__ z2, const int* __restrict__ y2, const int* __restrict__ x2,
     const int* __restrict__ shalf, const int* __restrict__ z0w, const int* __restrict__ live,
-    const float* __restrict__ pt, const float* __restrict__ pz, const float* __restrict__ py,
-    const float* __restrict__ px, float* __restrict__ out, int G, int NS, int ring_offset,
-    unsigned long long* staged) {
+    const int* __restrict__ it, const int* __restrict__ iz, const int* __restrict__ iy,
+    const int* __restrict__ ix, const float* __restrict__ bt, const float* __restrict__ bz,
+    const float* __restrict__ by, const float* __restrict__ bx, float* __restrict__ out, int n,
+    int G, int NS, int ring_offset, unsigned long long* staged) {
     extern __shared__ __align__(128) unsigned char smem[];
     uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
     Window* wins = reinterpret_cast<Window*>(smem + 16);
@@ -197,7 +206,10 @@ __global__ void __launch_bounds__(THREADS) slab_sample_kernel(
     }
     for (int gg = g_begin; gg < g_end; ++gg) {
         if (live[gg] == 0) {
-            for (int e = tid; e < NS * LANE; e += THREADS) out[(long long)gg * NS * LANE + e] = 0.0f;
+            for (int e = tid; e < NS * LANE; e += THREADS) {
+                const long long i = (long long)gg * NS * LANE + e;
+                if (i < n) out[i] = 0.0f;
+            }
         }
     }
     if (tid == 0) {
@@ -235,18 +247,21 @@ __global__ void __launch_bounds__(THREADS) slab_sample_kernel(
         const bool load = b0 > a0 || b1 > a1;
         if (load) stage<VEC>(data, ring, first, a0, b0, a1, b1, g, bar, staged);
 
-        const bool mine = j < cnt;
         const long long q = q0 + k + j;
         const long long i = q * LANE + (tid - j * LANE);
-        float p[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        int zw = 0;
+        const bool mine = j < cnt && i < n;
+        int idx[4] = {0, 0, 0, 0};
+        float bc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
         Window w = first;
         if (mine) {
-            p[0] = pt[i];
-            p[1] = pz[i];
-            p[2] = py[i];
-            p[3] = px[i];
-            zw = z0w[q];
+            idx[0] = it[i];
+            idx[1] = iz[i];
+            idx[2] = iy[i];
+            idx[3] = ix[i];
+            bc[0] = bt[i];
+            bc[1] = bz[i];
+            bc[2] = by[i];
+            bc[3] = bx[i];
             w = wins[k + j];
         }
         if (load) {
@@ -254,40 +269,51 @@ __global__ void __launch_bounds__(THREADS) slab_sample_kernel(
             phase ^= 1u;
         }
         if (mine) {
-            const float pr[4] = {p[0], __fsub_rn(p[1], (float)zw), p[2], p[3]};
+            const int dim[4] = {g.T, g.Z, g.Y, g.X};
+            const int org[4] = {w.t0, w.z, w.y, w.x};
             const int ext[4] = {g.WT, g.WZ, g.SY, g.SX};
-            int c0[4];
-            float wt4[4][2];
+            int c[4][2];
+            float wgt[4][2];
             bool ok[4][2];
 #pragma unroll
             for (int a = 0; a < 4; ++a) {
-                const float f = parcels::lower_corner(pr[a], ext[a]);
-                c0[a] = (int)f;
+                const int top = dim[a] - 1;
+                const int lo = min(max(idx[a], 0), top);
+                // clamp(index + 1, 0, top) without overflowing index + 1
+                const int hi = idx[a] >= top ? top : max(idx[a] + 1, 0);
+                c[a][0] = lo - org[a];
+                c[a][1] = hi - org[a];
+                wgt[a][0] = top > 0 ? __fsub_rn(1.0f, bc[a]) : 1.0f;
+                wgt[a][1] = bc[a];
 #pragma unroll
-                for (int kk = 0; kk < 2; ++kk) {
-                    const int c = c0[a] + kk;
-                    wt4[a][kk] = parcels::hat((float)c, pr[a]);
-                    ok[a][kk] = c >= 0 && c < ext[a];
-                }
+                for (int kk = 0; kk < 2; ++kk) ok[a][kk] = c[a][kk] >= 0 && c[a][kk] < ext[a];
             }
+            const int nt = g.T > 1 ? 2 : 1, nz = g.Z > 1 ? 2 : 1;
             const int slot0 = w.z % g.RZ;
             float acc = 0.0f;
 #pragma unroll
             for (int kt = 0; kt < 2; ++kt) {
+                if (kt >= nt) continue;
 #pragma unroll
                 for (int kz = 0; kz < 2; ++kz) {
+                    if (kz >= nz) continue;
 #pragma unroll
                     for (int ky = 0; ky < 2; ++ky) {
 #pragma unroll
                         for (int kx = 0; kx < 2; ++kx) {
-                            if (!(ok[0][kt] && ok[1][kz] && ok[2][ky] && ok[3][kx])) continue;
-                            int slot = slot0 + c0[1] + kz;
-                            if (slot >= g.RZ) slot -= g.RZ;
-                            const int r = ((c0[0] + kt) * g.RZ + slot) * g.SY + (c0[2] + ky);
-                            const float wt = __fmul_rn(
-                                __fmul_rn(__fmul_rn(wt4[0][kt], wt4[1][kz]), wt4[2][ky]),
-                                wt4[3][kx]);
-                            acc = __fadd_rn(acc, __fmul_rn(wt, ring[r * g.SX + c0[3] + kx]));
+                            float v = 0.0f;
+                            if (ok[0][kt] && ok[1][kz] && ok[2][ky] && ok[3][kx]) {
+                                int slot = slot0 + c[1][kz];
+                                if (slot >= g.RZ) slot -= g.RZ;
+                                const int r = (c[0][kt] * g.RZ + slot) * g.SY + c[2][ky];
+                                v = ring[r * g.SX + c[3][kx]];
+                            }
+                            v = __fmul_rn(v, wgt[0][kt]);
+                            v = __fmul_rn(v, wgt[1][kz]);
+                            v = __fmul_rn(v, wgt[2][ky]);
+                            v = __fmul_rn(v, wgt[3][kx]);
+                            // the sum starts from the first corner's term, as the gather's
+                            acc = (kt | kz | ky | kx) == 0 ? v : __fadd_rn(acc, v);
                         }
                     }
                 }
@@ -307,10 +333,11 @@ __global__ void __launch_bounds__(THREADS) slab_sample_kernel(
 extern "C" int slab_sample_launch(const float* data, int T, int Z, int Y, int X, const int* t0,
                                   const int* z1, const int* y1, const int* x1, const int* z2,
                                   const int* y2, const int* x2, const int* shalf, const int* z0w,
-                                  const int* live, const float* pt, const float* pz,
-                                  const float* py, const float* px, float* out, int G, int WT,
-                                  int WZ, int RZ, int SY, int SX, int NS, int blocks, int vec4,
-                                  unsigned long long* staged, void* stream) {
+                                  const int* live, const int* it, const int* iz, const int* iy,
+                                  const int* ix, const float* bt, const float* bz,
+                                  const float* by, const float* bx, float* out, int n, int G,
+                                  int WT, int WZ, int RZ, int SY, int SX, int NS, int blocks,
+                                  int vec4, unsigned long long* staged, void* stream) {
     if (RZ < WZ) return (int)cudaErrorInvalidValue;
     const Geometry g{T, Z, Y, X, WT, WZ, RZ, SY, SX};
     if (blocks < 1 || blocks > G) return (int)cudaErrorInvalidValue;
@@ -323,7 +350,7 @@ extern "C" int slab_sample_launch(const float* data, int T, int Z, int Y, int X,
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     kernel<<<(unsigned int)blocks, THREADS, smem, (cudaStream_t)stream>>>(
-        data, g, t0, z1, y1, x1, z2, y2, x2, shalf, z0w, live, pt, pz, py, px, out, G, NS,
-        ring_offset, staged);
+        data, g, t0, z1, y1, x1, z2, y2, x2, shalf, z0w, live, it, iz, iy, ix, bt, bz, by, bx,
+        out, n, G, NS, ring_offset, staged);
     return (int)cudaGetLastError();
 }

@@ -1,11 +1,12 @@
 """Advection-diffusion SDE kernels (reference: src/parcels/kernels/_advectiondiffusion.py).
 
 Port of the JAX package's ``kernels/advectiondiffusion.py``. The Wiener
-increments come from the engine's RNG (``particles.random_normal()``): one
-key split per draw, a seeded ``torch.Generator`` on the lanes' device, so
-runs repeat exactly for a seed on one device, in place of the reference's
-global ``np.random``. The streams differ from the JAX package's threefry
-streams; the moments of the displacement are what agree.
+increments come from the engine's RNG (``particles.random_normal()``): a
+counter-based draw keyed by the set's seed, the draw's place in the step,
+each particle's set position and its clock, so runs repeat exactly for a
+seed whatever their chunks, in place of the reference's global
+``np.random``. The streams differ from the JAX package's threefry streams;
+the moments of the displacement are what agree.
 """
 
 from __future__ import annotations

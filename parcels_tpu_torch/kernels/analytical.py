@@ -41,7 +41,8 @@ _I_S = 10  # intermediate time levels per model timestep (reference :163)
 
 
 def _compute_ds(F0, F1, r, direction):
-    """Scaled time to exit the cell along one axis (reference :262-288)."""
+    """Scaled time to exit the cell along one axis (reference :262-288), with
+    the face it exits by (``r_target``: 1 the upper, 0 the lower)."""
     up = F0 * (1 - r) + F1 * r
     r_target = torch.where(direction * up >= 0.0, 1.0, 0.0)
     B = F0 - F1
@@ -67,7 +68,7 @@ def _compute_ds(F0, F1, r, direction):
         ),
     )
     ds = torch.where(torch.abs(ds) < _TOL, inf, ds)
-    return ds, B, delta
+    return ds, B, delta, r_target
 
 
 def _compute_rs(r, B, delta, s_min):
@@ -76,6 +77,44 @@ def _compute_rs(r, B, delta, s_min):
     lin = -delta * s_min + r
     expo = (r + delta / B_safe) * torch.exp(-B * torch.clamp_max(s_min, 1e30)) - delta / B_safe
     return torch.where(torch.abs(B) < _TOL, lin, expo)
+
+
+def _cross_stalled_faces(new, old, axes, face, s_min):
+    """The jump's end ``new``, with a lane that stalls on a face moved one
+    f32 step past where it stands.
+
+    A deliberate difference from the JAX package. In f32 a lane whose exit
+    face lies within one f32 step of its position ends its jump to the face
+    where it stands (the exponential leaves it a fraction of a step short,
+    and the position rounds back), and would repeat that jump, one engine
+    iteration each, to the end of the run. For each axis the lane exits by
+    (``ds == s_min``, a face and not a time limit) along which the jump
+    makes no progress toward the exit face, each position coordinate that
+    the cell's axis moves takes one f32 step outward (``nextafter``) from
+    where the lane stands, and one more where that lands on the face itself
+    (an axis-aligned face's coordinate): the search reads a lane on a face
+    as r = 0 of the cell above it, and the scheme never leaves a lower face
+    it sits on. ``axes`` holds, for
+    each axis, its ``ds``, exit face (1 upper, 0 lower) and, for each
+    coordinate, the axis's component and the lower and upper faces'
+    coordinate (NaN where the face is not aligned with it). A lane whose
+    jump makes progress keeps the JAX package's values bit for bit.
+    """
+    out, moved = dict(new), {c: torch.zeros_like(face) for c in new}
+    for ds, exit_face, comps in axes:
+        sign = torch.where(exit_face == 1.0, 1.0, -1.0)
+        progress = sum((new[c] - old[c]) * e for c, (e, _, _) in comps.items())
+        stall = face & (torch.abs(ds) == s_min) & (sign * progress <= 0.0)
+        for c, (e, lower, upper) in comps.items():
+            hit = stall & (e != 0.0)
+            base = torch.where(moved[c], out[c], old[c])
+            ahead = torch.where(sign * e > 0.0, math.inf, -math.inf).to(base.dtype)
+            step = torch.nextafter(base, ahead)
+            on_face = step == torch.where(exit_face == 1.0, upper, lower)
+            step = torch.where(on_face, torch.nextafter(step, ahead), step)
+            out[c] = torch.where(hit, step, out[c])
+            moved[c] = moved[c] | hit
+    return out
 
 
 def AdvectionAnalytical(particles, fieldset):
@@ -172,13 +211,13 @@ def AdvectionAnalytical(particles, fieldset):
     V0 = direction * tblend(Vdata, zi_o, torch.clamp(yi, 0, Y - 1), xi_o) * c1 * dz
     V1 = direction * tblend(Vdata, zi_o, torch.clamp(yi + 1, 0, Y - 1), xi_o) * c3 * dz
 
-    ds_x, B_x, delta_x = _compute_ds(U0, U1, xsi, direction)
-    ds_y, B_y, delta_y = _compute_ds(V0, V1, eta, direction)
+    ds_x, B_x, delta_x, out_x = _compute_ds(U0, U1, xsi, direction)
+    ds_y, B_y, delta_y, out_y = _compute_ds(V0, V1, eta, direction)
     if with_w:
         Zw = Wdata.shape[1]
         W0 = direction * tblend(Wdata, torch.clamp(zi, 0, Zw - 1), yi_o, xi_o) * dxdy
         W1 = direction * tblend(Wdata, torch.clamp(zi + 1, 0, Zw - 1), yi_o, xi_o) * dxdy
-        ds_z, B_z, delta_z = _compute_ds(W0, W1, zeta, direction)
+        ds_z, B_z, delta_z, out_z = _compute_ds(W0, W1, zeta, direction)
     else:
         ds_z = torch.full_like(ds_x, math.inf)
 
@@ -216,11 +255,32 @@ def AdvectionAnalytical(particles, fieldset):
         + rs_x * rs_y * py[2]
         + (1.0 - rs_x) * rs_y * py[3]
     )
-    particles.dx = particles.dx + (new_x - particles.x)
-    particles.dy = particles.dy + (new_y - particles.y)
+    new = {"x": new_x, "y": new_y}
+    old = {"x": particles.x, "y": particles.y}
+
+    def aligned(p, i, j):
+        """Coordinate ``p`` of the face through corners ``i`` and ``j``, or NaN."""
+        return torch.where(p[i] == p[j], p[i], math.nan)
+
+    # per axis: (ds, exit face, {coordinate: (axis component, lower face, upper face)})
+    axes = [
+        (ds_x, out_x, {"x": (px[1] + px[2] - px[0] - px[3], aligned(px, 0, 3), aligned(px, 1, 2)),
+                       "y": (py[1] + py[2] - py[0] - py[3], aligned(py, 0, 3), aligned(py, 1, 2))}),
+        (ds_y, out_y, {"x": (px[2] + px[3] - px[0] - px[1], aligned(px, 0, 1), aligned(px, 3, 2)),
+                       "y": (py[2] + py[3] - py[0] - py[1], aligned(py, 0, 1), aligned(py, 3, 2))}),
+    ]
     if with_w:
         rs_z = torch.clamp(_compute_rs(zeta, B_z, delta_z, s_min), 0.0, 1.0)
-        particles.dz = particles.dz + ((1.0 - rs_z) * pz0 + rs_z * pz1 - particles.z)
+        new["z"] = (1.0 - rs_z) * pz0 + rs_z * pz1
+        old["z"] = particles.z
+        axes.append((ds_z, out_z, {"z": (pz1 - pz0, pz0, pz1)}))
+    # the jump ends on a face, not at a time limit
+    face = (s_min < torch.abs(ds_t / vol)) & torch.isfinite(s_min)
+    new = _cross_stalled_faces(new, old, axes, face, s_min)
+    particles.dx = particles.dx + (new["x"] - old["x"])
+    particles.dy = particles.dy + (new["y"] - old["y"])
+    if with_w:
+        particles.dz = particles.dz + (new["z"] - old["z"])
 
     # Transit time becomes this step's dt (the engine adds it to t and then
     # resets dt to the nominal value, reference kernel.py:226-228).

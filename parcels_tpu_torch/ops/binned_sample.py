@@ -12,8 +12,16 @@ counts them), and samples its lanes there.
 
 Lanes outside their sub-block's window ("overflow": chunks straddling three
 bins, sub-blocks straddling a z transition, stale lanes, an unsorted SoA)
-are repaired by a capacity-K compacted plain gather in tiers n/48, n/8 and
-full, so correctness never depends on sortedness.
+are repaired by a capacity-K compacted plain gather (``_gather16``) in tiers
+n/48, n/8 and full, so correctness never depends on sortedness.
+
+The tiers are invisible: K2 reads each lane's own integer cell index and f32
+bcoord (the search's), forms its window-relative corner as the integer
+``clamp(index + k) - origin`` and takes ``_gather16``'s corners, weights,
+product order and first term, so a lane inside its window gets from K2
+the bits the gather gives it. A lane's value then depends neither on the
+chunk it shares nor on the overflow count, and a run's bits follow neither
+the sort points nor the chunk lengths that set them.
 
 What changed for the card: the JAX planner sized a slab pair for the TPU's
 on-chip memory, scored it with the TPU's FLOP/byte rate and aligned DMA
@@ -33,8 +41,6 @@ import functools
 import os
 
 import torch
-
-from parcels_tpu_torch.ops.interp_kernels import hat_stencil
 
 __all__ = [
     "CHUNK",
@@ -293,6 +299,23 @@ def _build_plan(shape4, gpos):
         ok_z = torch.ones_like(in_maj)
     overflow = overflow | (~(in_maj & ok_z)).reshape(G, CHUNK)
 
+    # every corner the gather reads (``_gather16``: clamp(index + k, 0, dim - 1))
+    # must lie in the lane's sub-block window; K2's value is then the gather's
+    sub = shalf.reshape(G, NS, 1).expand(G, NS, LANE).reshape(G, CHUNK) == 1
+    zwin = z0w.reshape(G, NS, 1).expand(G, NS, LANE).reshape(G, CHUNK)
+
+    def win(a):
+        return torch.where(sub, origins[a + "2"][:, None], origins[a + "1"][:, None])
+
+    inside = torch.ones(G, CHUNK, dtype=torch.bool, device=zb.device)
+    for ax, dim, o, ext in (("T", T, t0[:, None], WT), ("Z", Z, win("z") + zwin, WZ),
+                            ("Y", Y, win("y"), SY), ("X", X, win("x"), SX)):
+        idx = padded(gpos[ax]["index"].to(i32)).reshape(G, CHUNK)
+        lo = torch.clamp(idx, 0, dim - 1)
+        hi = torch.clamp(idx + (1 if dim > 1 else 0), 0, dim - 1)
+        inside = inside & (lo >= o) & (hi <= o + (ext - 1))
+    overflow = overflow | ~inside
+
     # dead lanes (capacity padding, deleted particles) never need values:
     # drop them from the overflow budget; chunks with no live lane are
     # skipped by the kernel
@@ -304,21 +327,11 @@ def _build_plan(shape4, gpos):
     else:
         live = torch.ones(G, dtype=i32, device=zb.device)
 
-    sel_h0 = half == 0
-
-    def rel(axis, dim, o1, o2):
-        if dim == 1:
-            return torch.zeros(npad, dtype=torch.float32, device=zb.device)
-        idx = padded(gpos[axis]["index"].to(i32)).reshape(G, CHUNK)
-        bc = padded(gpos[axis]["bcoord"].to(torch.float32)).reshape(G, CHUNK)
-        ci = torch.clamp(idx, 0, max(dim - 2, 0))
-        o = torch.where(sel_h0, o1[:, None], o2[:, None])
-        return ((ci - o).to(torch.float32) + bc).reshape(npad)
-
     overflow = overflow.reshape(npad)[:n]
     return {
         "G": G,
         "NS": NS,
+        "n": n,
         "npad": npad,
         "geom": geom,
         "WZ": WZ,
@@ -327,15 +340,9 @@ def _build_plan(shape4, gpos):
         "shalf": shalf.reshape(-1).contiguous(),
         "z0w": z0w.reshape(-1).to(i32).contiguous(),
         "live": live.contiguous(),
-        "rel": tuple(
-            r.contiguous()
-            for r in (
-                rel("T", T, t0, t0),
-                rel("Z", Z, origins["z1"], origins["z2"]),
-                rel("Y", Y, origins["y1"], origins["y2"]),
-                rel("X", X, origins["x1"], origins["x2"]),
-            )
-        ),
+        # each lane's own cell index and bcoord, (T, Z, Y, X), as the gather reads them
+        "index": tuple(gpos[ax]["index"].to(i32).contiguous() for ax in "TZYX"),
+        "bcoord": tuple(gpos[ax]["bcoord"].to(torch.float32).contiguous() for ax in "TZYX"),
         "overflow": overflow,
         # one host read per plan: the fix-up tier is chosen on the host
         "count": int(overflow.sum()),
@@ -378,26 +385,40 @@ def _lane_windows(plan, device):
     )
 
 
+def _levels(index, bcoord, dim):
+    """One axis's (corner, weight) levels as ``_gather16`` takes them: corners
+    clamped to the axis, a single level of weight 1 on an axis of one point."""
+    i = index.to(torch.int64)
+    if dim == 1:
+        return [(torch.zeros_like(i), torch.ones_like(bcoord))]
+    return [(torch.clamp(i, 0, dim - 1), 1.0 - bcoord), (torch.clamp(i + 1, 0, dim - 1), bcoord)]
+
+
 def slab_sample_plain(data: torch.Tensor, plan) -> torch.Tensor:
-    """Plain PyTorch version of K2, operation for operation: (npad,) values."""
+    """Plain PyTorch version of K2, operation for operation: (n,) values.
+
+    A corner outside the lane's window reads 0 (such a lane is overflow,
+    and the fix-up replaces it); a lane inside its window gets ``_gather16``'s
+    value bit for bit. Lanes of dead chunks are 0.
+    """
     T, Z, Y, X = data.shape
     WT, _, SY, SX = plan["geom"][:4]
-    WZ = plan["WZ"]
+    n = plan["n"]
     flat = data.reshape(-1)
-    to, zo, yo, xo, zw, chunk = _lane_windows(plan, data.device)
-    pt, pz, py, px = plan["rel"]
-    pz = pz - zw.to(torch.float32)
-    st = [hat_stencil(p, e) for p, e in zip((pt, pz, py, px), (WT, WZ, SY, SX))]
-    acc = torch.zeros_like(pt)
-    for ct, wt, vt in st[0]:
-        for cz, wz, vz in st[1]:
-            for cy, wy, vy in st[2]:
-                for cx, wx, vx in st[3]:
-                    ok = vt & vz & vy & vx
-                    lin = (((to + ct) * Z + (zo + cz)) * Y + (yo + cy)) * X + (xo + cx)
-                    v = flat[torch.where(ok, lin, 0)]
-                    w = ((wt * wz) * wy) * wx
-                    acc = acc + torch.where(ok, w * v, 0.0)
+    *org, _, chunk = (a[:n] for a in _lane_windows(plan, data.device))
+    lv = [_levels(i, b, d) for i, b, d in zip(plan["index"], plan["bcoord"], (T, Z, Y, X))]
+    inw = [[(c >= o) & (c < o + e) for c, _ in lvl]
+           for lvl, o, e in zip(lv, org, (WT, plan["WZ"], SY, SX))]
+    acc = None
+    for (ct, wt), it in zip(lv[0], inw[0]):
+        for (cz, wz), iz in zip(lv[1], inw[1]):
+            for (cy, wy), iy in zip(lv[2], inw[2]):
+                for (cx, wx), ix in zip(lv[3], inw[3]):
+                    ok = it & iz & iy & ix
+                    lin = ((ct * Z + cz) * Y + cy) * X + cx
+                    v = torch.where(ok, flat[torch.where(ok, lin, 0)], 0.0)
+                    v = (((v * wt) * wz) * wy) * wx
+                    acc = v if acc is None else acc + v
     return torch.where(plan["live"][chunk] == 1, acc, 0.0)
 
 
@@ -484,14 +505,15 @@ def staged_bytes(plan, sms: int) -> int:
 
 
 def scripted_plan(shape4, geom, t0, org1, org2, shalf, z0w, live, seed=0, device="cpu"):
-    """A K2 plan with the given windows and random slab-relative positions.
+    """A K2 plan with the given windows and random lane positions.
 
     ``geom`` is (WT, SZ, SY, SX); ``t0``, ``live`` and the (z, y, x) slab
     origins ``org1``/``org2`` are per chunk, ``shalf`` and ``z0w`` per
     sub-block (``NS`` per chunk). Positions fall inside their sub-block's
-    window and up to 0.6 of a cell beyond it; every 97th lane is NaN.
-    Window sequences the planner seldom produces can so be held against
-    the plain version.
+    window and up to 0.6 of a cell beyond it, so some corners fall outside
+    the window and some outside the field; every 97th lane has a NaN x
+    bcoord. Window sequences the planner seldom produces can so be held
+    against the plain version.
     """
     WT, SZ, SY, SX = geom
     WZ = _zwin(SZ)
@@ -500,20 +522,32 @@ def scripted_plan(shape4, geom, t0, org1, org2, shalf, z0w, live, seed=0, device
     g = torch.Generator().manual_seed(seed)
 
     def ints(a):
-        return torch.as_tensor(a, dtype=torch.int32).reshape(-1).contiguous().to(device)
+        return torch.as_tensor(a, dtype=torch.int32).reshape(-1).contiguous()
 
-    zw = torch.as_tensor(z0w, dtype=torch.float32).reshape(-1).repeat_interleave(LANE)
-    rel = []
-    for lo, ext in ((0.0, WT), (zw, WZ), (0.0, SY), (0.0, SX)):
-        rel.append(lo + torch.rand(npad, generator=g) * (ext + 0.2) - 0.6)
-    rel[3][::97] = float("nan")
     origins = {f"{a}{k}": ints([o[i] for o in org]) for k, org in (("1", org1), ("2", org2))
                for i, a in enumerate("zyx")}
-    return {
-        "G": G, "NS": NS, "npad": npad, "geom": (WT, SZ, SY, SX), "WZ": WZ,
+    plan = {
+        "G": G, "NS": NS, "n": npad, "npad": npad, "geom": (WT, SZ, SY, SX), "WZ": WZ,
         "t0": ints(t0), "origins": origins, "shalf": ints(shalf), "z0w": ints(z0w),
-        "live": ints(live), "rel": tuple(r.contiguous().to(device) for r in rel),
+        "live": ints(live),
     }
+    index, bcoord = [], []
+    for o, ext in zip(_lane_windows(plan, "cpu")[:4], (WT, WZ, SY, SX)):
+        pos = o.to(torch.float32) + torch.rand(npad, generator=g) * (ext + 0.2) - 0.6
+        cell = torch.floor(pos)
+        index.append(cell.to(torch.int32).contiguous())
+        bcoord.append((pos - cell).contiguous())
+    bcoord[3][::97] = float("nan")
+    plan["index"], plan["bcoord"] = tuple(index), tuple(bcoord)
+
+    def moved(v):
+        if isinstance(v, dict):
+            return {k: moved(a) for k, a in v.items()}
+        if isinstance(v, tuple):
+            return tuple(moved(a) for a in v)
+        return v.to(device) if isinstance(v, torch.Tensor) else v
+
+    return moved(plan)
 
 
 def edge_plans(X=520, device="cpu"):
@@ -541,7 +575,7 @@ def edge_plans(X=520, device="cpu"):
 
 
 def slab_sample(data: torch.Tensor, plan, staged: torch.Tensor | None = None) -> torch.Tensor:
-    """Sample every planned lane from its staged window: (npad,) values.
+    """Sample every planned lane from its staged window: (n,) values.
 
     On a CUDA tensor this launches K2 (``slab_sample.launches`` counts the
     launches); on a CPU tensor it runs the plain version. ``staged``, a
@@ -556,17 +590,21 @@ def slab_sample(data: torch.Tensor, plan, staged: torch.Tensor | None = None) ->
         raise ValueError("slab_sample: expected a contiguous float32 field")
     T, Z, Y, X = data.shape
     WT, _, SY, SX = plan["geom"][:4]
-    G, NS, npad = plan["G"], plan["NS"], plan["npad"]
+    G, NS = plan["G"], plan["NS"]
     o = plan["origins"]
     ints = [plan["t0"], o["z1"], o["y1"], o["x1"], o["z2"], o["y2"], o["x2"],
             plan["shalf"], plan["z0w"], plan["live"]]
     for a in ints:
         if a.dtype != torch.int32 or a.device != data.device or not a.is_contiguous():
             raise ValueError("slab_sample: plan arrays must be contiguous int32 on the field's device")
-    for p in plan["rel"]:
-        if p.dtype != torch.float32 or p.shape != (npad,) or p.device != data.device:
-            raise ValueError("slab_sample: positions must be (npad,) float32 on the field's device")
-    out = torch.empty(npad, dtype=torch.float32, device=data.device)
+    n = plan["n"]
+    for arrs, dtype in ((plan["index"], torch.int32), (plan["bcoord"], torch.float32)):
+        for a in arrs:
+            if (a.dtype != dtype or a.shape != (n,) or a.device != data.device
+                    or not a.is_contiguous()):
+                raise ValueError("slab_sample: lane indices (int32) and bcoords (float32) must be "
+                                 "contiguous (n,) arrays on the field's device")
+    out = torch.empty(n, dtype=torch.float32, device=data.device)
     if staged is not None and (staged.dtype != torch.int64 or staged.device != data.device):
         raise ValueError("slab_sample: staged must be an int64 tensor on the field's device")
     if G == 0:
@@ -578,8 +616,8 @@ def slab_sample(data: torch.Tensor, plan, staged: torch.Tensor | None = None) ->
     launch = load("slab_sample")
     err = launch(
         data.data_ptr(), T, Z, Y, X, *(a.data_ptr() for a in ints),
-        *(p.data_ptr() for p in plan["rel"]), out.data_ptr(),
-        G, WT, plan["WZ"], ring_planes(plan["geom"]), SY, SX, NS,
+        *(a.data_ptr() for a in plan["index"]), *(a.data_ptr() for a in plan["bcoord"]),
+        out.data_ptr(), n, G, WT, plan["WZ"], ring_planes(plan["geom"]), SY, SX, NS,
         k2_grid(G, torch.cuda.get_device_properties(data.device).multi_processor_count), vec4,
         None if staged is None else staged.data_ptr(),
         torch.cuda.current_stream(data.device).cuda_stream,
@@ -644,7 +682,7 @@ def binned_linear_sample(data, gpos):
     if n == 0:
         return torch.empty(0, dtype=torch.float32, device=data.device)
     plan = _get_plan(shape4, gpos)
-    vals = slab_sample(data, plan)[:n]
+    vals = slab_sample(data, plan)
 
     # tiered capacity: the steady engine-sorted state has near-zero overflow
     # (sub-block z/bin transition tails only), so the common tier is small

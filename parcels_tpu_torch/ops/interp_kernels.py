@@ -64,8 +64,7 @@ def hat_stencil(p: torch.Tensor, dim: int):
     The lower corner is ``floor(p)`` (NaN -> 0, far-out positions clamped
     just outside the axis); weights are ``max(0, 1 - |c - p|)`` with NaN
     propagating; a corner outside ``[0, dim)`` is invalid and contributes
-    nothing. Shared with the K2 plain version and mirrored by
-    ``csrc/hat.cuh``.
+    nothing. Mirrored by ``csrc/hat.cuh``.
     """
     f = torch.nan_to_num(torch.floor(p), nan=0.0).clamp(-2.0, float(dim))
     out = []

@@ -147,3 +147,84 @@ def test_analytical_advection_3d_with_w():
     _compare(a, b, extent=3e4)
     # the engine reverted dt to the nominal step after every transit
     np.testing.assert_array_equal(a.dt, np.float32(1800.0))
+
+
+# ---------------------------------------------------------------------------
+# the f32 face stall (a deliberate difference: kernels/analytical.py
+# _cross_stalled_faces)
+# ---------------------------------------------------------------------------
+
+
+def _counted_stommel(which, x0, y0, hours=48, dt_h=6):
+    """AdvectionAnalytical on the Stommel gyre (2 days at dt 6 h unless
+    told), with a count of the engine iterations each lane took."""
+    pkg = which["pkg"]
+    fs = pkg.FieldSet.from_sgrid_conventions(which["stommel"](grid_type="C"), mesh="flat",
+                                             **which["kw"])
+    pclass = pkg.Particle.add_variable(pkg.Variable("nit", dtype=np.float32))
+
+    def Count(particles, fieldset):  # noqa: N802
+        particles.nit = particles.nit + 1.0
+
+    pset = pkg.ParticleSet(fs, pclass=pclass, x=x0, y=y0)
+    pset.execute([pkg.AdvectionAnalytical, Count], dt=np.timedelta64(dt_h, "h"),
+                 runtime=np.timedelta64(hours, "h"))
+    return pset
+
+
+#: one f32 step (0.25 m) north of the south face of its cell in the Stommel
+#: gyre, where the flow runs south: the jump to the face rounds to the
+#: lane's own position (a transit of 3.4 s). Random seeds reach this state
+#: (seed 0's lane 167 after 1.7 days)
+STALL_SEED = (np.array([7894390.0]), np.array([2512563.0]))
+
+
+def test_analytical_lane_on_a_face_crosses_it(monkeypatch):
+    """The lane finishes the 2 days in as many iterations as its neighbours;
+    without the nudge it repeats its 3.4 s transit to the end, as the JAX
+    package's eager scheme does: over one hour, about a thousand times."""
+    from parcels_tpu_torch.kernels import analytical
+
+    pset = _counted_stommel(PORT, *STALL_SEED)
+    assert pset.nit[0] <= 20, pset.nit
+    np.testing.assert_array_equal(pset.t, np.float32(2 * 86400))
+    assert pset.y[0] < STALL_SEED[1][0] - 1e3  # it went on south
+    fs = pset.fieldset
+    p0, p1 = _sample_p(PORT, fs, *STALL_SEED), _sample_p(PORT, fs, pset.x, pset.y)
+    np.testing.assert_allclose(p1, p0, rtol=2e-2)
+    # the scheme as the JAX package has it: the lane stalls on the face
+    monkeypatch.setattr(analytical, "_cross_stalled_faces", lambda new, *a: new)
+    stalled = _counted_stommel(PORT, *STALL_SEED, hours=1, dt_h=1)
+    assert stalled.nit[0] > 500, stalled.nit
+    assert abs(stalled.y[0] - STALL_SEED[1][0]) <= 0.25  # at most one f32 step
+
+
+def test_analytical_random_stommel_seeds_match_reference(monkeypatch):
+    """Random seeds over the gyre: every lane finishes in a bounded number
+    of iterations, and every lane the nudge never moved equals the JAX
+    package (run eagerly, operation by operation as the port computes) at
+    the file's tolerance, with equal states."""
+    from parcels_tpu_torch.kernels import analytical
+
+    nudged = []
+    cross = analytical._cross_stalled_faces
+
+    def crossed(new, *args):
+        out = cross(new, *args)
+        nudged.append(torch.stack([out[c] != new[c] for c in new]).any(dim=0))
+        return out
+
+    monkeypatch.setattr(analytical, "_cross_stalled_faces", crossed)
+    rng = np.random.default_rng(0)
+    x0, y0 = rng.uniform(1e6, 9e6, 200), rng.uniform(1e6, 9e6, 200)
+    a = _counted_stommel(PORT, x0, y0)
+    assert a.nit.max() <= 20, a.nit.max()
+    moved = torch.stack(nudged).any(dim=0).numpy()[:len(x0)]  # the set is padded
+    assert moved.sum() >= 1  # the grid reaches the stall (lane 167)
+    keep = ~moved
+    with jax.disable_jit():
+        b = _counted_stommel(JAX, x0[keep], y0[keep])
+    for var in ("x", "y"):
+        np.testing.assert_allclose(getattr(a, var)[keep], getattr(b, var), rtol=0, atol=1e-4 * 1e7)
+    np.testing.assert_array_equal(a.state[keep], b.state)
+    assert b.nit.max() <= 20  # none of these lanes stalls in the JAX package either

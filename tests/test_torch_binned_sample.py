@@ -114,6 +114,30 @@ def test_plain_equals_gather_on_window_lanes():
     np.testing.assert_allclose(vals[ok].numpy(), ref[ok].numpy(), **TOL)
 
 
+def test_plain_equals_gather_bit_for_bit_on_live_lanes():
+    """On the inputs of test_plain_equals_gather_on_window_lanes, K2's plain
+    version equals ``_gather16`` bit for bit on every lane it keeps (live,
+    not overflow), and K2 with its fix-up equals it on every lane: which tier
+    serves a lane, and which chunk it shares, changes no bit."""
+    shape4 = (2, 16, 64, 512)
+    rng = np.random.default_rng(11)
+    data = torch.as_tensor(rng.uniform(-1, 1, shape4).astype(np.float32))
+    n = 64 * tbs.CHUNK
+    pos = _sort_positions(_random_positions(rng, n, shape4), shape4)
+    tg = {ax: {"index": torch.as_tensor(i), "bcoord": torch.as_tensor(b)} for ax, (i, b) in pos.items()}
+    plan = tbs._build_plan(shape4, tg)
+    ref = tbs._gather16(data, tbs._gather_lanes(tg))
+    ok = ~plan["overflow"]
+    assert ok.sum() > 0.95 * n
+    assert torch.equal(tbs.slab_sample_plain(data, plan)[ok], ref[ok])
+    tg["_sorted"] = True
+    assert torch.equal(tbs.binned_linear_sample(data, tg), ref)
+    # the same lanes in chunks of another composition: the first 100 lanes dropped
+    part = {ax: {k: v[100:] for k, v in d.items()} for ax, d in tg.items() if ax in "TZYX"}
+    part["_sorted"] = True
+    assert torch.equal(tbs.binned_linear_sample(data, part), ref[100:])
+
+
 def test_dead_chunks_write_zero():
     shape4 = (2, 4, 16, 256)
     rng = np.random.default_rng(1)

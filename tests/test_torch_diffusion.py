@@ -139,8 +139,9 @@ def test_blocks_draw_different_numbers(monkeypatch):
 
 
 def test_key_splits_per_draw_and_carries():
-    """Each draw splits the key (draws differ), the same key repeats, and
-    the key carries across execute calls: two 1 h runs equal one 2 h run."""
+    """Each draw of a call differs, the same key repeats, and the streams
+    carry across execute calls: two 1 h runs equal one 2 h run (the draws
+    are counter-based: key, place in the step, set position and clock)."""
     state = torch.zeros(6, dtype=torch.int32)
     key = torch.tensor([1, 2], dtype=torch.uint32)
     p = t_view.Particles({"state": state, "_rng": key}, torch.ones(6, dtype=torch.bool))
