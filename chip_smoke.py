@@ -12,6 +12,9 @@ held to the plain version, timed in turns, with their SASS counts.
 the port of the tree at ROOT, its kernels built from ROOT, and prints the
 lanes whose bits differ without holding them (``chunking_ab``: a reading
 that compares an earlier tree with this one in one call).
+``python3 chip_smoke.py --cgrid ROOT`` runs instead paths (c) and (d) of
+phases 8-9 on the port of the tree at ROOT and prints their readings
+(``cgrid_ab``: cold step 1, steps 2-6, the K3 stepper with the repair).
 ``python3 chip_smoke.py --stream-repeat K`` runs instead (j2) of phase 17
 streamed and from memory K times, each pair and each run against the first
 bit for bit, then phase 18's restart (``stream_repeat``).
@@ -48,13 +51,26 @@ counter is set to 0 just before a path runs and read just after):
    redid with the exact division and square root;
 8. the C-grid engine path end to end: 2^23 particles at z = 1 m through
    ``ParticleSet.execute(AdvectionRK4)`` at dt 600 s for 6 steps on the
-   config-5 fieldset (curvilinear search, stage cache);
+   config-5 fieldset (curvilinear search, stage cache); K5 repairs every
+   stage, its wrappers under ``torch.cuda.set_sync_debug_mode("error")``
+   (a host read there raises), launched once for each stage that repaired;
 9. the K3 hit-and-repair stepper from the SoA cache of one engine step: one
-   warm-up and 24 timed steps with the repair, 24 without, against the
-   engine advancing the same warm batch 25 steps;
+   warm-up and 24 timed steps with the repair (each step under the sync
+   debug mode "error"; K5 launched 4 times a step), 24 without, against
+   the engine advancing the same warm batch 25 steps;
 10. card against CPU: phase 8 at 64K particles (stage cache forced on the
     CPU), and the rectilinear C-grid peninsula, which launches K1 on the
     card;
+25. (run here, while the config-5 field is on the card) K5, the C-grid
+    miss repair and walk (``ops/cgrid_repair.py``), against its plain
+    version bit for bit on every cache column: (c)'s cold full eval at 2^23
+    lanes and the repair of every lane from invalid keys in rounds of 8192
+    (as (c)'s first stage runs it), the next stage's misses from phase 8's
+    SoA, 2^16 lanes with NaN and infinite positions and invalid keys, and a
+    rotated flat curvilinear grid with lanes outside its lookup raster in
+    every one of at least 3 rounds and a dead lane that moved as the last
+    round's pad; with K5's times, bound (from the walk iterations and
+    re-seeds the kernel counts), registers and the plain version's times;
 11. K4 (fused flat-mesh RK4 step) against its plain version at the JAX
     micro-benchmark's size, 10M lanes floored to 2048 (9,998,336): its
     unit cells mixed with lanes that reach every branch, NaN positions and
@@ -855,12 +871,13 @@ def k3_ab(torch, tp, parent_src):
 
 def _wrappers():
     from parcels_tpu_torch.ops.binned_sample import slab_sample
+    from parcels_tpu_torch.ops.cgrid_repair import cgrid_repair
     from parcels_tpu_torch.ops.flat_rk4 import flat_rk4_step
     from parcels_tpu_torch.ops.fused_rk4 import fused_rk4_step
     from parcels_tpu_torch.ops.interp_kernels import fold_sample
 
     return {"fold_sample": fold_sample, "slab_sample": slab_sample, "fused_rk4": fused_rk4_step,
-            "flat_rk4": flat_rk4_step}
+            "flat_rk4": flat_rk4_step, "cgrid_repair": cgrid_repair}
 
 
 def counts():
@@ -879,10 +896,66 @@ def zero_cache_counts():
 
 
 def cache_counts():
+    """The stage cache's counters (on the card the repair keeps ``misses``
+    and ``miss_rounds`` as device tensors: they are read here)."""
     from parcels_tpu_torch.ops.stagecache import cgrid_cached_eval as ce
 
-    share = ce.misses / ce.checked_lanes if ce.checked_lanes else 0.0
-    return dict(full_evals=ce.full_evals, miss_rounds=ce.miss_rounds, miss_share_per_stage=share)
+    misses, rounds = int(ce.misses), int(ce.miss_rounds)
+    share = misses / ce.checked_lanes if ce.checked_lanes else 0.0
+    return dict(full_evals=ce.full_evals, miss_rounds=rounds, misses=misses,
+                checked_lanes=ce.checked_lanes, miss_share_per_stage=share)
+
+
+class no_host_reads:
+    """K5's launch and round plan, and with ``whole`` every call inside the
+    block, run under ``torch.cuda.set_sync_debug_mode("error")``: a
+    synchronising call raises. The port's module globals are wrapped for the
+    block and restored after it."""
+
+    WRAPPED = ("repair_plan", "_launch")
+
+    def __init__(self, torch, whole=False):
+        self.torch, self.whole = torch, whole
+
+    def _checked(self, fn):
+        torch = self.torch
+
+        def call(*args, **kwargs):
+            old = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode(old)
+
+        return call
+
+    def __enter__(self):
+        from parcels_tpu_torch.ops import cgrid_repair
+
+        self.saved = {k: getattr(cgrid_repair, k) for k in self.WRAPPED}
+        for k, fn in self.saved.items():
+            setattr(cgrid_repair, k, self._checked(fn))
+        if self.whole:
+            self.torch.cuda.set_sync_debug_mode("error")
+
+    def __exit__(self, *exc):
+        from parcels_tpu_torch.ops import cgrid_repair
+
+        for k, fn in self.saved.items():
+            setattr(cgrid_repair, k, fn)
+        if self.whole:
+            self.torch.cuda.set_sync_debug_mode("default")
+
+
+def k5_per_stage(what, launches, cc, n):
+    """K5 launched once for every full eval and every stage that repaired
+    (a stage checks one engine block of lanes)."""
+    from parcels_tpu_torch._core.engine import DEFAULT_BLOCK_SIZE
+
+    stages = cc["full_evals"] + cc["checked_lanes"] // min(n, DEFAULT_BLOCK_SIZE)
+    if launches != stages or stages == 0:
+        raise AssertionError(f"{what}: K5 launched {launches} times for {stages} stages")
 
 
 #: the JAX package's config 5: global 1/12-degree-like MOi C-grid, (T, Z, Y, X)
@@ -945,15 +1018,20 @@ def k3_path_phase(torch, tp, fs, seeds, dt=600.0, steps=24):
         stepper = FusedRK4Stepper(fs, warm, dt, repair=repair)
         if repair:
             zero_counts()
-        first = stepper.one_step()
+        # a step reads nothing back to the host: K3, the compaction, K5's
+        # four repair samples and the scatter
+        with no_host_reads(torch, whole=True):
+            first = stepper.one_step()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        cnts = [stepper.one_step() for _ in range(steps)]
+        with no_host_reads(torch, whole=True):
+            cnts = [stepper.one_step() for _ in range(steps)]
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         cnts = [int(first)] + [int(c) for c in cnts]
         if repair:
             launches = counts()["fused_rk4"]
+            k5_launches = counts()["cgrid_repair"]
             # reading the state raises if a step overflowed its repair round
             xy = stepper.state[:2].cpu().numpy()
         out["repair" if repair else "norepair"] = dict(
@@ -972,10 +1050,318 @@ def k3_path_phase(torch, tp, fs, seeds, dt=600.0, steps=24):
     if over > 0.01 or d.max() > 0.08:
         raise AssertionError(f"K3 path vs engine: {over:.4%} of lanes beyond 1e-4 deg, "
                              f"max {d.max():.3g} deg")
-    out.update(launches=launches, max_dxy=float(d.max()), share_over_1e4=over,
+    out.update(launches=launches, k5_launches=k5_launches, max_dxy=float(d.max()),
+               share_over_1e4=over,
                engine_rate=pset.last_run_stats["particle_steps_per_s"],
                engine_wall=pset.last_run_stats["wall_s"])
     return out
+
+
+#: f32 operations of one point-in-cell evaluation of K5's walk: the
+#: tangent-frame projection (13), the bilinear inverse (about 45 adds,
+#: multiplies and selects, 4 divisions, 1 square root), the tolerance and
+#: outside-distance tests and the move (about 20)
+K5_OPS_PER_PIC = 80
+#: bytes a searched lane reads and writes once, beside its pic rows and
+#: raster seeds: y, x, q (20 B), ti, t1i, zc, wzi (16), the warm cell (8),
+#: the 10 columns of its final row beyond the 15 of the pic row (40; those
+#: were read when the lane evaluated that cell) and the U/V quads gathered
+#: (32), the 25-column row and the quads written (132), cell, yi, xi, esc
+#: and oob (17)
+K5_LANE_BYTES = 20 + 16 + 8 + (40 + 32) + (100 + 32) + 17
+#: bytes of one point-in-cell evaluation: the 15 pic columns of a table row
+K5_PIC_BYTES = 60
+
+
+def k5_bound(n, searched, warm_cells, counts, slot, has_w, keys):
+    """K5's bound from this run's counts: (ms, by). ``counts`` is the
+    kernel's (2,) [pic evaluations, raster re-seeds], one evaluation of
+    each searched lane at its warm cell among them; the warm cells' rows
+    are counted once for each of the ``warm_cells`` distinct cells. A
+    repair also reads each lane's slot and writes the searched lanes' ti,
+    zi and wzi."""
+    evals, reseeds = (int(v) for v in counts)
+    per_lane = K5_LANE_BYTES + (2 * 16 if has_w else 0) + (12 if keys else 0)
+    rows = evals - searched + warm_cells
+    nbytes = searched * per_lane + rows * K5_PIC_BYTES + reseeds * 8 + (4 * n if slot else 0)
+    return bound(nbytes, evals * K5_OPS_PER_PIC)
+
+
+def k5_warm(torch, vf, yi_w, xi_w, sel=None):
+    """(lanes searched, distinct warm cells among them) of a K5 call that
+    starts the lanes of ``sel`` (all if None) at (``yi_w``, ``xi_w``)."""
+    ny, nx = vf.grid.garrs["lon"].shape
+    key = yi_w.clamp(0, ny - 2).long() * (nx - 1) + xi_w.clamp(0, nx - 2).long()
+    if sel is not None:
+        key = key[sel]
+    return key.numel(), torch.unique(key).numel()
+
+
+def k5_same(torch, got, want, what):
+    """Every cache column of K5 equal to its plain version bit for bit.
+    Returns the largest absolute difference over the floating columns
+    (lanes NaN in both excluded)."""
+    err = 0.0
+    for k, v in want.items():
+        if v is None:
+            continue
+        g = got[k]
+        same = g == v
+        if v.is_floating_point():
+            both_nan = torch.isnan(g) & torch.isnan(v)
+            d = torch.where(same | both_nan, torch.zeros_like(g), (g - v).abs())
+            err = max(err, float(d.max())) if d.numel() else err
+            same = same | both_nan
+        lanes = ~same.reshape(same.shape[0], -1).all(1)
+        if bool(lanes.any()):
+            first = torch.nonzero(lanes)[:5].flatten().tolist()
+            raise AssertionError(f"K5 ({what}): column {k} differs from its plain version on "
+                                 f"{int(lanes.sum())} lanes, first {first}")
+    return err
+
+
+def k5_lanes(torch, vf, y, x, t, z):
+    """What K5 reads of a stage's lanes besides the cache columns."""
+    from parcels_tpu_torch._core import index_search
+    from parcels_tpu_torch.ops import stagecache
+
+    ti, t1i, _, _, _, zc, _, wzi, _ = stagecache.stage_brackets(vf, t, z)
+    return dict(y=y, x=x, q=index_search.query_xyz(y, x, vf.grid.spec.spherical), ti=ti,
+                t1i=t1i, zc=zc, wzi=wzi)
+
+
+def k5_repair_case(torch, vf, c, miss, k, L, what, time_it=False, plain_reps=1):
+    """K5's repair of ``c`` at ``miss`` against the plain loop's on copies;
+    with ``time_it`` the kernel's and the plain version's times (each call
+    warm-started from the same cells)."""
+    from parcels_tpu_torch.ops import cgrid_repair as k5
+
+    def copy():
+        return {key: (v.clone() if v is not None else None) for key, v in c.items()}
+
+    args = (L["y"], L["x"], L["q"], L["ti"], L["t1i"], L["zc"], L["wzi"])
+    slot, _, _ = k5.repair_plan(miss, k)
+    searched, warm_cells = k5_warm(torch, vf, c["yi"], c["xi"], slot >= 0)
+    del slot
+    ck, cp = copy(), copy()
+    counts = torch.zeros(2, dtype=torch.int64, device=L["y"].device)
+    cnt, rounds = k5.cgrid_repair(vf, ck, miss, k, *args, iters=counts)
+    torch.cuda.synchronize()
+    pargs = (L["y"], L["x"], L["ti"], L["t1i"], L["zc"], L["wzi"])
+    t0 = time.perf_counter()
+    pcnt, prounds = k5.cgrid_repair_plain(vf, cp, miss, k, *pargs)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    if (int(cnt), int(rounds)) != (pcnt, prounds):
+        raise AssertionError(f"K5 ({what}): plan {int(cnt)} misses in {int(rounds)} rounds, "
+                             f"the plain loop {pcnt} in {prounds}")
+    err = k5_same(torch, ck, cp, what)
+    out = dict(misses=pcnt, rounds=prounds, evals=int(counts[0]), reseeds=int(counts[1]),
+               plain_ms=1e3 * plain_s, counts=counts, searched=searched,
+               warm_cells=warm_cells, max_abs_err=err)
+    del cp
+    if time_it:
+        yi0, xi0 = c["yi"].clone(), c["xi"].clone()
+
+        def run():
+            ck["yi"].copy_(yi0)
+            ck["xi"].copy_(xi0)
+            k5.cgrid_repair(vf, ck, miss, k, *args)
+
+        out["ms"] = cuda_ms(torch, run)
+        if plain_reps > 1:
+            def plain():
+                cq = copy()
+                k5.cgrid_repair_plain(vf, cq, miss, k, *pargs)
+
+            out["plain_ms"] = cuda_ms(torch, plain, reps=plain_reps, warmup=0)
+    return out
+
+
+def rotated_cgrid(torch, tp, device, xdim=400, ydim=300):
+    """A flat curvilinear grid (a rectilinear 1 km grid rotated by 30 deg)
+    under a C-grid vector field ``UVc`` with seeded velocities."""
+    from parcels_tpu_torch._core.field import VectorField
+    from parcels_tpu_torch.datasets import curvilinear_rotated_dataset
+
+    ds = curvilinear_rotated_dataset(xdim=xdim, ydim=ydim)
+    rng = np.random.default_rng(25)
+    for name in ("U", "V"):
+        ds[name].values[:] = rng.uniform(-0.3, 0.3, ds[name].values.shape).astype(np.float32)
+    fs = tp.FieldSet.from_sgrid_conventions(ds, mesh="flat", device=device)
+    fs.add_field(VectorField("UVc", fs.U, fs.V, interp_method=tp.CGrid_Velocity()))
+    return fs
+
+
+def k5_phase(torch, tp, fs5, soa8, device="cuda"):
+    """Phase 25: K5 against its plain version bit for bit on every cache
+    column, at (c)'s cold 2^23 lanes (a full eval, and the repair of every
+    lane from invalid keys in rounds of 8192, as (c)'s first stage runs it),
+    on a steady stage's misses from phase 8's SoA, on a rotated flat grid
+    with raster-outside lanes in every round and a walking pad lane, and on
+    NaN and infinite lanes with invalid keys. Returns the kernel line."""
+    from parcels_tpu_torch._core.particles_view import Particles
+    from parcels_tpu_torch.ops import cgrid_repair as k5
+    from parcels_tpu_torch.ops import stagecache
+
+    dev = torch.device(device)
+    vf = fs5.build_views(fs5.device_arrays()).UV
+    spec = vf.grid.spec
+    n = soa8["x"].shape[0]
+    seeds = config5_seeds(n)
+    f32 = dict(dtype=torch.float32, device=dev)
+    y, x = (torch.as_tensor(seeds[v], **f32) for v in ("y", "x"))
+    L = k5_lanes(torch, vf, y, x, torch.zeros(n, **f32), torch.as_tensor(seeds["z"], **f32))
+    zero = torch.zeros(n, dtype=torch.int32, device=dev)
+    full = (L["y"], L["x"], L["q"], L["ti"], L["t1i"], L["zc"], L["wzi"], zero, zero)
+    res = {}
+
+    # (c)'s cold full eval: every lane from cell (0, 0)
+    counts = torch.zeros(2, dtype=torch.int64, device=dev)
+    got = k5.cgrid_full(vf, *full, iters=counts)
+    torch.cuda.synchronize()
+    want = k5.cgrid_full_plain(vf, *[a for i, a in enumerate(full) if i != 2])
+    err = k5_same(torch, got, want, "cold full eval, 2^23 lanes")
+    ms = cuda_ms(torch, lambda: k5.cgrid_full(vf, *full))
+    plain_ms = cuda_ms(torch, lambda: k5.cgrid_full_plain(
+        vf, *[a for i, a in enumerate(full) if i != 2]), reps=3, warmup=1)
+    _, warm_cells = k5_warm(torch, vf, zero, zero)
+    bound_ms, bound_by = k5_bound(n, n, warm_cells, counts, False, False, False)
+    res["cold_full"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                            evals=int(counts[0]), reseeds=int(counts[1]),
+                            warm_cells=warm_cells, max_abs_err=err)
+    del got
+
+    # (c)'s first stage: the SoA keys are invalid, every lane misses and is
+    # repaired from cell (0, 0), in rounds of 8192
+    c = dict(want)
+    c.update(cell=torch.full((n,), -1, dtype=torch.int32, device=dev), yi=zero.clone(),
+             xi=zero.clone(), ti=L["ti"].clone(), zi=L["zc"].clone(), wzi=L["wzi"].clone())
+    del want
+    K = min(n, max(1024, n // stagecache.K_DIV))
+    miss = torch.ones(n, dtype=torch.bool, device=dev)
+    r = k5_repair_case(torch, vf, c, miss, K, L, "cold repair, 2^23 lanes", time_it=True)
+    r["bound_ms"], r["bound_by"] = k5_bound(n, r["searched"], r["warm_cells"], r.pop("counts"),
+                                            True, False, True)
+    res["cold_repair"] = r
+    del c
+
+    # a steady stage: the next stage 1 after phase 8's six steps
+    pd = soa8
+    part = Particles(pd, pd["_active"])
+    c = stagecache._load_soa_cache(part, vf)
+    L8 = k5_lanes(torch, vf, pd["y"], pd["x"], pd["t"], pd["z"])
+    from parcels_tpu_torch._core import index_search
+
+    ok, _, _ = index_search.pic_from_rows(c["row"], L8["q"])
+    hit = ok & (L8["ti"] == c["ti"]) & (L8["zc"] == c["zi"]) & (L8["wzi"] == c["wzi"]) & (
+        c["cell"] >= 0)
+    miss = ~hit & torch.isfinite(pd["y"]) & torch.isfinite(pd["x"]) & pd["_active"]
+    c["esc"] = torch.zeros_like(c["esc"])
+    n8 = miss.shape[0]
+    K8 = min(n8, max(1024, n8 // stagecache.K_DIV))
+    r = k5_repair_case(torch, vf, c, miss, K8, L8, "steady stage from phase 8", time_it=True,
+                       plain_reps=3)
+    r["bound_ms"], r["bound_by"] = k5_bound(n8, r["searched"], r["warm_cells"],
+                                            r.pop("counts"), True, False, True)
+    res["steady"] = r
+    del c, L8, pd, part
+
+    # NaN and infinite lanes and invalid keys, on 2^16 lanes of the grid
+    m = min(1 << 16, n)
+    rng = np.random.default_rng(26)
+    ys, xs = y[:m].clone(), x[:m].clone()
+    base = k5.cgrid_full_plain(vf, ys, xs, *[L[k][:m] for k in ("ti", "t1i", "zc", "wzi")],
+                               zero[:m], zero[:m])
+    base.update(ti=L["ti"][:m].clone(), zi=L["zc"][:m].clone(), wzi=L["wzi"][:m].clone())
+    base["cell"][::13] = -1
+    ys = ys + torch.as_tensor(rng.uniform(-0.3, 0.3, m), **f32)
+    xs = xs + torch.as_tensor(rng.uniform(-0.3, 0.3, m), **f32)
+    ys[::97] = float("nan")
+    xs[::89] = float("inf")
+    xs[::83] = float("-inf")
+    Lm = k5_lanes(torch, vf, ys, xs, torch.zeros(m, **f32), torch.ones(m, **f32))
+    miss = torch.as_tensor(rng.random(m) < 0.5, device=dev)
+    miss[::97] = True
+    miss[::89] = True
+    res["nonfinite"] = k5_repair_case(torch, vf, base, miss, 1024, Lm,
+                                      "NaN, infinite lanes and invalid keys")
+    res["nonfinite"].pop("counts")
+    del base, L, y, x, zero, full
+
+    # the rotated flat grid: raster-outside lanes in every round, a walking pad
+    fr = rotated_cgrid(torch, tp, device)
+    vr = fr.build_views(fr.device_arrays()).UVc
+    g = fr.gridset[0]
+    mr = 1 << 16
+    ny, nx = g.lon.shape
+    yi, xi = rng.integers(0, ny - 1, mr), rng.integers(0, nx - 1, mr)
+    a, b = rng.uniform(0.05, 0.95, mr), rng.uniform(0.05, 0.95, mr)
+
+    def bilinear(v):
+        return ((1 - a) * (1 - b) * v[yi, xi] + a * (1 - b) * v[yi, xi + 1]
+                + a * b * v[yi + 1, xi + 1] + (1 - a) * b * v[yi + 1, xi])
+
+    xr, yr = bilinear(g.lon), bilinear(g.lat)
+    tz = torch.zeros(mr, **f32)
+    Lr = k5_lanes(torch, vr, torch.as_tensor(yr, **f32), torch.as_tensor(xr, **f32), tz, tz)
+    zr = torch.zeros(mr, dtype=torch.int32, device=dev)
+    base = k5.cgrid_full_plain(vr, Lr["y"], Lr["x"], Lr["ti"], Lr["t1i"], Lr["zc"], Lr["wzi"],
+                               zr, zr)
+    base.update(ti=Lr["ti"].clone(), zi=Lr["zc"].clone(), wzi=Lr["wzi"].clone())
+    moved = rng.random(mr) < 0.72
+    moved[-1] = True
+    shift = rng.choice([-1.0, 1.0], (2, mr)) * rng.uniform(1000.0, 2000.0, (2, mr))
+    x2 = np.where(moved, xr + shift[0], xr)
+    y2 = np.where(moved, yr + shift[1], yr)
+    far = moved & (np.arange(mr) % 10 == 3)
+    span = g.lon.max() - g.lon.min()
+    x2 = np.where(far, g.lon.max() + 0.2 * span + rng.uniform(0, 5e3, mr), x2)
+    Lr2 = k5_lanes(torch, vr, torch.as_tensor(y2, **f32), torch.as_tensor(x2, **f32), tz, tz)
+    # torch divides a card tensor by a Python float as a product with the
+    # f32 reciprocal; K5's raster index relies on it
+    (ly0, lx0), (lys, lxs) = g.lookup_meta()["origin"], g.lookup_meta()["step"]
+    inv = float(np.float32(1.0) / np.float32(lys))
+    if dev.type == "cuda" and not torch.equal((Lr2["y"] - ly0) / lys, (Lr2["y"] - ly0) * inv):
+        raise AssertionError("torch's division by a Python float on the card is not the "
+                             "product with its f32 reciprocal that K5 reproduces")
+    ok, _, _ = index_search.pic_from_rows(base["row"], Lr2["q"])
+    live = torch.ones(mr, dtype=torch.bool, device=dev)
+    live[-1] = False  # a dead lane: the pad of the last, short round
+    miss = ~ok & live & torch.isfinite(Lr2["y"]) & torch.isfinite(Lr2["x"])
+    outside = Lr2["x"] > lx0 + lxs * g._lookup["xi"].shape[1]
+    rounds = list(k5.plain_rounds(miss, 1024))
+    if not (len(rounds) >= 3 and int(miss.sum()) % 1024 and all(
+            bool(outside[i.long()].any()) for i in rounds)):
+        raise AssertionError("phase 25: the rotated case lacks short rounds or outside lanes")
+    before = base["cell"][-1].clone()
+    r = k5_repair_case(torch, vr, base, miss, 1024, Lr2, "rotated flat grid")
+    if int(before) == -1 or r["rounds"] < 3:
+        raise AssertionError("phase 25: the pad lane did not start in a cell")
+    res["rotated"] = dict(r, outside=int((outside & miss).sum()))
+    res["rotated"].pop("counts")
+    del fr, vr
+    torch.cuda.empty_cache()
+
+    cold, steady = res["cold_full"], res["steady"]
+    log(f"[K5] cgrid_repair bit for bit against its plain version on every cache column: "
+        f"(c)'s cold full eval at {n} lanes: kernel {cold['ms']:.4f} ms, plain "
+        f"{cold['plain_ms']:.1f} ms, bound {cold['bound_ms']:.4f} ms ({cold['bound_by']}; "
+        f"{cold['evals']} pic evaluations, {cold['reseeds']} re-seeds counted by the kernel, "
+        f"{cold['warm_cells']} distinct warm cells; max abs err {cold['max_abs_err']:.3g}); "
+        f"(c)'s cold repair of every lane in rounds of {K}: {res['cold_repair']}; a steady "
+        f"stage from phase 8's SoA: {steady}; NaN/inf lanes and invalid keys: "
+        f"{res['nonfinite']}; rotated flat grid, {mr} lanes, raster-outside lanes in every "
+        f"round and a walking pad: {res['rotated']}; ptxas: {ptxas_lines('cgrid_repair')}; "
+        f"no single library call computes this search")
+    err = max(v["max_abs_err"] for v in res.values())
+    return dict(max_abs_err=err, ms=cold["ms"], plain_ms=cold["plain_ms"],
+                bound_ms=cold["bound_ms"], bound_by=cold["bound_by"], library_ms=None,
+                steady_ms=steady["ms"], steady_plain_ms=steady["plain_ms"],
+                steady_bound_ms=steady["bound_ms"], steady_misses=steady["misses"],
+                cold_repair_ms=res["cold_repair"]["ms"],
+                cold_repair_plain_ms=res["cold_repair"]["plain_ms"],
+                cold_repair_bound_ms=res["cold_repair"]["bound_ms"])
 
 
 def compare_runs(a, b, tol):
@@ -3467,6 +3853,66 @@ def chunking_ab(torch, root):
     log(json.dumps({"chunking": res, "root": root}))
 
 
+def cgrid_ab(torch, root, steps=24, dt=600.0):
+    """``--cgrid ROOT``: paths (c) and (d) on the port at ``ROOT`` (this
+    checkout or an earlier one), its kernels built from ``ROOT``: phase 8's
+    cold step 1 and steps 2-6 with the stage cache's counts, and phase 9's
+    stepper with the repair, one warm-up and ``steps`` timed steps; nothing
+    held, a reading for comparing trees in one call (in turns). One JSON
+    line, also appended to ``chiprun_out/cgrid_ab.jsonl``."""
+    import importlib
+
+    import parcels_tpu_torch as tp
+    from parcels_tpu_torch.ops import _build
+    from parcels_tpu_torch.ops.fused_rk4 import FusedRK4Stepper
+
+    try:  # K5's launch count, where the tree has K5
+        k5 = importlib.import_module("parcels_tpu_torch.ops.cgrid_repair").cgrid_repair
+    except ImportError:
+        k5 = None
+
+    def k5_launches(zero=False):
+        if k5 is not None and zero:
+            k5.launches = 0
+        return None if k5 is None else k5.launches
+
+    res = dict(root=root, card=nvidia_smi(), build_s=_build.build_all())
+    fs5 = config5_fieldset(torch, tp, "cuda")
+    fill_velocities(torch, fs5)
+    seeds = config5_seeds(CONFIG5_LANES)
+    zero_cache_counts()
+    k5_launches(zero=True)
+    pset = run_cgrid(tp, fs5, seeds, 1, int(dt))
+    res["step1"] = dict(wall_s=pset.last_run_stats["wall_s"], cache=cache_counts(),
+                        k5=k5_launches())
+    zero_cache_counts()
+    k5_launches(zero=True)
+    pset.execute(tp.AdvectionRK4, dt=np.timedelta64(int(dt), "s"),
+                 runtime=np.timedelta64(5 * int(dt), "s"))
+    stats = pset.last_run_stats
+    res["steps2_6"] = dict(rate=stats["particle_steps_per_s"], wall_s=stats["wall_s"],
+                           cache=cache_counts(), k5=k5_launches())
+    del pset
+    warm = dict(run_cgrid(tp, fs5, seeds, 1, int(dt))._data)
+    stepper = FusedRK4Stepper(fs5, warm, dt)
+    k5_launches(zero=True)
+    stepper.one_step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cnts = [stepper.one_step() for _ in range(steps)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stepper.audit()
+    res["k3_path"] = dict(rate=CONFIG5_LANES * steps / wall, ms_per_step=1e3 * wall / steps,
+                          miss_share=float(np.mean([int(c) for c in cnts])) / stepper.n,
+                          k5=k5_launches())
+    line = json.dumps(res)
+    log(f"[cgrid] {line}")
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "cgrid_ab.jsonl"), "a") as f:
+        f.write(line + "\n")
+
+
 def mark(t_start, done: str):
     log(f"[time] {done} done at {time.perf_counter() - t_start:.1f} s")
 
@@ -3478,8 +3924,9 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this script runs only on a card", file=sys.stderr)
         return 2
     here = os.path.dirname(os.path.abspath(__file__))
-    # ``--chunking ROOT`` runs the port of another tree
-    sys.path.insert(0, sys.argv[2] if sys.argv[1:2] == ["--chunking"] else here)
+    # ``--chunking ROOT`` and ``--cgrid ROOT`` run the port of another tree
+    other = sys.argv[1:2] in (["--chunking"], ["--cgrid"])
+    sys.path.insert(0, sys.argv[2] if other else here)
     import parcels_tpu_torch as tp
     from parcels_tpu_torch.ops import _build
 
@@ -3489,6 +3936,9 @@ def main() -> int:
     dev = torch.device("cuda")
     if len(sys.argv) == 3 and sys.argv[1] == "--k3-ab":
         k3_ab(torch, tp, sys.argv[2])
+        return 0
+    if len(sys.argv) == 3 and sys.argv[1] == "--cgrid":
+        cgrid_ab(torch, sys.argv[2])
         return 0
     if len(sys.argv) == 3 and sys.argv[1] == "--chunking":
         chunking_ab(torch, sys.argv[2])
@@ -3576,22 +4026,31 @@ def main() -> int:
     seeds5 = config5_seeds(CONFIG5_LANES)
     zero_counts()
     zero_cache_counts()
-    p8 = run_cgrid(tp, fs5, seeds5, 1)
-    c8a, s8a = cache_counts(), p8.last_run_stats
+    # K5 repairs every stage with no host read (its wrappers under the sync
+    # debug mode "error")
+    with no_host_reads(torch):
+        p8 = run_cgrid(tp, fs5, seeds5, 1)
+    l8a, c8a, s8a = counts(), cache_counts(), p8.last_run_stats
+    k5_per_stage("phase 8 step 1", l8a["cgrid_repair"], c8a, CONFIG5_LANES)
+    zero_counts()
     zero_cache_counts()
-    p8.execute(tp.AdvectionRK4, dt=np.timedelta64(600, "s"), runtime=np.timedelta64(3000, "s"))
+    with no_host_reads(torch):
+        p8.execute(tp.AdvectionRK4, dt=np.timedelta64(600, "s"),
+                   runtime=np.timedelta64(3000, "s"))
     l8, c8b, s8b = counts(), cache_counts(), p8.last_run_stats
+    k5_per_stage("phase 8 steps 2-6", l8["cgrid_repair"], c8b, CONFIG5_LANES)
     if not (np.isfinite(p8.x).all() and np.isfinite(p8.y).all()) or int(
             (p8.state >= tp.StatusCode.Error).sum()):
         raise AssertionError("C-grid path: non-finite positions or error states after 6 steps")
+    soa8 = dict(p8._data)  # phase 25 repairs the next stage from this SoA
     del p8
     torch.cuda.empty_cache()
     wall8 = s8a["wall_s"] + s8b["wall_s"]
     log(f"[e2e cgrid] {CONFIG5} {CONFIG5_LANES} particles RK4 dt 600 s 6 steps: "
         f"particle_steps_per_s {6 * CONFIG5_LANES / wall8:.1f} wall_s {wall8:.4f}; step 1: "
-        f"wall_s {s8a['wall_s']} stage cache {c8a}; steps 2-6: particle_steps_per_s "
-        f"{s8b['particle_steps_per_s']} wall_s {s8b['wall_s']} stage cache {c8b}; "
-        f"launches {l8}")
+        f"wall_s {s8a['wall_s']} stage cache {c8a}, K5 launches {l8a['cgrid_repair']}; "
+        f"steps 2-6: particle_steps_per_s {s8b['particle_steps_per_s']} wall_s "
+        f"{s8b['wall_s']} stage cache {c8b}; launches {l8}")
 
     mark(t_start, "phase 8")
     # 9: the K3 hit-and-repair path from the same seeds
@@ -3603,9 +4062,12 @@ def main() -> int:
         f"particle-steps/s (wall {k9['norepair']['wall']:.4f} s); engine on the same warm "
         f"batch, 25 steps: {k9['engine_rate']} particle-steps/s (wall {k9['engine_wall']} s); "
         f"after 25 steps max |dx|,|dy| {k9['max_dxy']:.3g} deg, share over 1e-4 deg "
-        f"{k9['share_over_1e4']:.5f}; launches {k9['launches']}")
+        f"{k9['share_over_1e4']:.5f}; launches K3 {k9['launches']}, K5 {k9['k5_launches']}")
     if k9["launches"] < 25:
         raise AssertionError("K3 was not launched on every step of its path")
+    if k9["k5_launches"] != 4 * 25:
+        raise AssertionError(f"K5 launched {k9['k5_launches']} times in 25 repaired steps "
+                             f"(4 samples a step)")
 
     mark(t_start, "phase 9")
     # 10: card against CPU: phase 8 at 64K particles, and the rectilinear
@@ -3652,10 +4114,14 @@ def main() -> int:
     np.testing.assert_array_equal(runs["cuda"].state, runs["cpu"].state)
     log(f"[peninsula cgrid] 4096 particles, 60 RK4 steps, card vs CPU within rtol 1e-5; "
         f"launches {lp}")
-    del fs5
-    torch.cuda.empty_cache()
 
     mark(t_start, "phase 10")
+    # 25: K5 against its plain version at (c)'s cold lanes, on the next stage
+    # of phase 8's SoA, on the rotated flat grid and on non-finite lanes
+    k5 = k5_phase(torch, tp, fs5, soa8)
+    del fs5, soa8
+    torch.cuda.empty_cache()
+    mark(t_start, "phase 25")
     # 11: K4 against its plain version, then its micro-benchmark path
     k4, l11 = k4_phase(torch)
 
@@ -3750,6 +4216,14 @@ def main() -> int:
         dict(name="flat_rk4", route="cuda", source="parcels_tpu_torch/csrc/flat_rk4.cu",
              replaces="scripts/micro_pallas_rk4.py:129", launches=l11,
              launches_by_path={"k4_micro_bench": l11}, **k4),
+        # no Pallas counterpart: K5 replaces the JAX package's XLA repair and
+        # walk loops (stagecache.py:805-840, index_search.py:531-548)
+        dict(name="cgrid_repair", route="cuda", source="parcels_tpu_torch/csrc/cgrid_repair.cu",
+             replaces="parcels_tpu/ops/stagecache.py:805",
+             launches=l8a["cgrid_repair"] + l8["cgrid_repair"],
+             launches_by_path={"e2e_cgrid_step_1": l8a["cgrid_repair"],
+                               "e2e_cgrid_steps_2_6": l8["cgrid_repair"],
+                               "k3_path": k9["k5_launches"]}, **k5),
     ]
     log(json.dumps({"kernels": kernels}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

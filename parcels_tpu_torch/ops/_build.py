@@ -53,6 +53,11 @@ KERNEL_SOURCES = {
         "flat_rk4_launch",
         [_P, _P, _P, _P, ctypes.c_longlong, _P],
     ),
+    "cgrid_repair": (
+        "cgrid_repair.cu",
+        "cgrid_repair_launch",
+        [_P, _P],
+    ),
 }
 
 _LOADED: dict = {}

@@ -8,9 +8,10 @@ Per step:
    face-value quads, and flags the lanes where any stage left the cached
    cell (or whose row is invalid).
 2. The first ``kcap`` flagged lanes are compacted on the device and re-run
-   through the stage cache's exact search + gather + blend
-   (``stagecache._full`` / ``_blend``); their positions, rows and quads are
-   scattered back.
+   through the stage cache's exact search + gather (K5,
+   ``cgrid_repair.cgrid_full``) and blend (``stagecache._blend``); their
+   positions, rows and quads are scattered back. Nothing of the step is read
+   back to the host.
 
 Like the JAX path this is a stepper of its own: ``ParticleSet.execute``
 keeps the engine's stage-cache path and does not call it. It carries the
@@ -30,7 +31,7 @@ import numpy as np
 import torch
 
 from parcels_tpu_torch._core import index_search
-from parcels_tpu_torch.ops import stagecache
+from parcels_tpu_torch.ops import cgrid_repair, stagecache
 
 __all__ = ["FusedRK4Stepper", "fused_rk4_step", "fused_rk4_step_plain"]
 
@@ -277,8 +278,9 @@ class FusedRK4Stepper:
 
     def repair_rk4(self, sub, t0):
         """Exact RK4 of the compacted lanes: 4 stages, each a warm-started
-        curvilinear search + C-grid quad gather + blend (stagecache._full /
-        _blend). Returns new positions and the stage-4 cache.
+        curvilinear search + C-grid quad gather (K5 on the card, its plain
+        version on the CPU: ``cgrid_repair.cgrid_full``) + blend
+        (``stagecache._blend``). Returns new positions and the stage-4 cache.
 
         Stage 1 warm-starts from the lane's cached cell, as the engine's miss
         rounds do. (The JAX path starts it from the warm batch's element
@@ -299,8 +301,8 @@ class FusedRK4Stepper:
         xi_g = cell % cx
 
         def sample(xs, ys, ts, yi_w, xi_w):
-            c = stagecache._full(vf, ys, xs, ti, t1i, zc, zc, yi_w, xi_w)
             q = index_search.query_xyz(ys, xs, spec.spherical)
+            c = cgrid_repair.cgrid_full(vf, ys, xs, q, ti, t1i, zc, zc, yi_w, xi_w)
             _, xsi, eta = index_search.pic_from_rows(c["row"], q)
             tau = torch.clamp(ts * self.inv_t1, 0.0, 1.0)
             u, v, _ = stagecache._blend(spec, c["row"], xsi, eta, tau, zeta, c["u4"], c["v4"],
@@ -321,19 +323,28 @@ class FusedRK4Stepper:
                 "cell": c4["cell"], "u4": c4["u4"], "v4": c4["v4"]}
 
     def scatter_sub(self, out, rowsT, uvT, idx, sub_out):
-        """Write the repaired lanes back into the planes, in place. Pad lanes
-        (idx == n) are filtered out: torch has no dropping scatter, and a
-        clamped pad would race a real lane's write."""
-        keep = idx < self.n
-        il = idx[keep]
-        k = il.shape[0]
-        z = torch.zeros(k, dtype=torch.float32, device=il.device)
-        upd = torch.stack([sub_out["x"][keep], sub_out["y"][keep], sub_out["t"][keep],
-                           sub_out["dt"][keep], z, z, z, z])
+        """Write the repaired lanes back into the planes, in place, with no
+        host read. Pad lanes (idx == n) are clamped to lane n - 1 and write
+        what that lane ends with: their own repair where lane n - 1 is
+        repaired too (the same inputs, so the same values), else its current
+        planes. Duplicate writes then carry equal values."""
+        n = self.n
+        il = torch.clamp_max(idx, n - 1)
+        # pads that must leave lane n - 1 as it is
+        hold = ((idx >= n) & ~(idx == n - 1).any())[None]
+        z = torch.zeros(il.shape[0], dtype=torch.float32, device=il.device)
+        upd = torch.stack([sub_out["x"], sub_out["y"], sub_out["t"], sub_out["dt"], z, z, z, z])
+        cell = sub_out["cell"]
+        rows = self._rows_planes(cell)
+        uv = torch.cat([sub_out["u4"].t(), sub_out["v4"].t()])
+        upd = torch.where(hold, out[:, n - 1:], upd)
+        cell = torch.where(hold[0], self.cell[n - 1:], cell)
+        rows = torch.where(hold, rowsT[:, n - 1:], rows)
+        uv = torch.where(hold, uvT[:, n - 1:], uv)
         out[:, il] = upd
-        self.cell[il] = sub_out["cell"][keep]
-        rowsT[:, il] = self._rows_planes(sub_out["cell"][keep])
-        uvT[:, il] = torch.cat([sub_out["u4"][keep].t(), sub_out["v4"][keep].t()])
+        self.cell[il] = cell
+        rowsT[:, il] = rows
+        uvT[:, il] = uv
         return out, rowsT, uvT
 
     def audit(self):

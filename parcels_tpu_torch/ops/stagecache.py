@@ -17,8 +17,9 @@ particle SoA (``_sc_*`` columns, owner field only).
 
 Misses (lanes that crossed a cell edge or a time/depth bracket mid-step) are
 repaired in compacted rounds of K lanes through the full search + gather
-path. Out-of-bounds samples return 0 and escalate states as ``field.py``
-does: the cache is semantically invisible.
+path (``ops/cgrid_repair.py``: on the card one launch of K5 for every round,
+with no host read). Out-of-bounds samples return 0 and escalate states as
+``field.py`` does: the cache is semantically invisible.
 
 Not ported, by design: the JAX package's corner-column tables
 (``_col_quad``, ``ops/colgather.py``). They are a TPU row-gather layout, and
@@ -269,21 +270,29 @@ def _rows(vf, cell):
 
 
 def _load_soa_cache(particles, vf):
+    """The cache of a kernel call's first stage, from the SoA columns. Its
+    columns are copies, contiguous and the kernel call's own: the miss
+    repair writes them in place, and the SoA is never updated in place
+    (particles_view)."""
     pd = particles._data
     key = pd[SC_KEY]
     cell = torch.clamp_min(key[:, 0], 0)
     cx = max(vf.grid.spec.xdim, 1)
+
+    def own(t):
+        return t.clone(memory_format=torch.contiguous_format)
+
     return {
-        "cell": key[:, 0],
-        "ti": key[:, 1],
-        "zi": key[:, 2],
-        "wzi": key[:, 3],
+        "cell": own(key[:, 0]),
+        "ti": own(key[:, 1]),
+        "zi": own(key[:, 2]),
+        "wzi": own(key[:, 3]),
         "yi": torch.div(cell, cx, rounding_mode="floor").to(torch.int32),
         "xi": (cell % cx).to(torch.int32),
         "row": _rows(vf, cell),
-        "u4": pd["_sc_u4"],
-        "v4": pd["_sc_v4"],
-        "w4": pd.get(SC_W) if vf.W is not None else None,
+        "u4": own(pd["_sc_u4"]),
+        "v4": own(pd["_sc_v4"]),
+        "w4": own(pd[SC_W]) if vf.W is not None and SC_W in pd else None,
         "esc": torch.zeros_like(key[:, 0]),
         "oob": torch.zeros_like(key[:, 0], dtype=torch.bool),
     }
@@ -381,84 +390,21 @@ def _blend(spec, row, xsi, eta, tau, zeta, u4, v4, w4, Zw, y_deg):
 
 
 # ---------------------------------------------------------------------------
-# full path: search + gathers for a (possibly compacted) batch
-# ---------------------------------------------------------------------------
-
-
-def _full(vf, y, x, ti, t1i, zc, wzi, yi_g, xi_g):
-    """Search + gather every cached operand for one batch of lanes.
-
-    Returns the cache-column dict plus the X/Y escalation code per lane.
-    """
-    grid = vf.grid
-    spec = grid.spec
-    garrs = grid.garrs
-    lkm = grid.lookup_meta
-    lookup = None
-    if spec.has_lookup and lkm is not None:
-        lookup = {**lkm, "yi": garrs["lookup_yi"], "xi": garrs["lookup_xi"]}
-    yi, eta, xi, xsi = index_search.curvilinear_search(
-        garrs["lon"], garrs["lat"], y, x, yi_g, xi_g,
-        spherical=spec.spherical, lookup=lookup, pic_table=cell_table(vf),
-    )
-
-    oob_lane = (yi == index_search.RIGHT_OUT_OF_BOUNDS) | (xi == index_search.RIGHT_OUT_OF_BOUNDS)
-    err_lane = (yi == index_search.GRID_SEARCH_ERROR) | (xi == index_search.GRID_SEARCH_ERROR)
-    esc = torch.maximum(
-        torch.where(oob_lane, int(StatusCode.ErrorOutOfBounds), 0),
-        torch.where(err_lane, int(StatusCode.ErrorGridSearching), 0),
-    ).to(torch.int32)
-
-    cy, cx = max(spec.ydim, 1), max(spec.xdim, 1)
-    yi_cl = torch.clamp(yi, 0, cy - 1)
-    xi_cl = torch.clamp(xi, 0, cx - 1)
-    cell = yi_cl * cx + xi_cl
-    valid = (yi >= 0) & (xi >= 0)
-
-    T, Z, Y, X = vf.U.data.shape
-    yi_o = torch.clamp(yi + spec.offset_y, 0, Y - 1)
-    xw = torch.clamp(xi, 0, max(X - 2, 0))
-    u4 = _flat_quad(vf.U, ti, t1i, zc, yi_o, xw, yi_o, xw + 1)
-    xi_o = torch.clamp(xi + spec.offset_x, 0, X - 1)
-    yv = torch.clamp(yi, 0, max(Y - 2, 0))
-    v4 = _flat_quad(vf.V, ti, t1i, zc, yv, xi_o, yv + 1, xi_o)
-    w4 = _w_quad(vf.W, ti, t1i, wzi, yi_o, xi_o) if vf.W is not None else None
-
-    return {
-        "cell": torch.where(valid, cell, -1).to(torch.int32),
-        "yi": yi_cl.to(torch.int32),
-        "xi": xi_cl.to(torch.int32),
-        "row": _rows(vf, cell),
-        "u4": u4,
-        "v4": v4,
-        "w4": w4,
-        "esc": esc,
-        "oob": ~valid,
-    }
-
-
-# ---------------------------------------------------------------------------
 # the cached eval
 # ---------------------------------------------------------------------------
 
-#: per-key tensors a miss-repair round scatters back into the cache
-_ROUND_KEYS = ("cell", "yi", "xi", "row", "u4", "v4", "w4", "esc", "oob")
 
-
-def cgrid_cached_eval(vf, t, z, y, x, particles):
-    """Drop-in replacement for VectorFieldView.eval on curvilinear C-grids."""
-    from parcels_tpu_torch._core.field import _escalate
-
-    grid = vf.grid
-    spec = grid.spec
-    garrs = grid.garrs
-    i32 = dict(dtype=torch.int32, device=y.device)
-
+def stage_brackets(vf, t, z):
+    """The time and depth brackets of a stage's lanes, as the cache keys
+    them: (ti, t1i, tau, t_oob, zi_raw, zc, zeta, wzi, Zw)."""
+    spec = vf.grid.spec
+    garrs = vf.grid.garrs
+    i32 = dict(dtype=torch.int32, device=z.device)
     if vf.U.has_time:
         ti, tau, t_oob = index_search.search_time(garrs["time"], t, spec.time_uniform)
     else:
-        ti = torch.zeros(y.shape, **i32)
-        tau = torch.zeros_like(y)
+        ti = torch.zeros(z.shape, **i32)
+        tau = torch.zeros_like(z)
         t_oob = None
     T = vf.U.data.shape[0]
     t1i = torch.clamp(ti + 1, 0, T - 1)
@@ -476,6 +422,18 @@ def cgrid_cached_eval(vf, t, z, y, x, particles):
     else:
         Zw = 1
         wzi = torch.zeros_like(zc)
+    return ti, t1i, tau, t_oob, zi_raw, zc, zeta, wzi, Zw
+
+
+def cgrid_cached_eval(vf, t, z, y, x, particles):
+    """Drop-in replacement for VectorFieldView.eval on curvilinear C-grids."""
+    from parcels_tpu_torch._core.field import _escalate
+    from parcels_tpu_torch.ops import cgrid_repair
+
+    grid = vf.grid
+    spec = grid.spec
+    i32 = dict(dtype=torch.int32, device=y.device)
+    ti, t1i, tau, t_oob, zi_raw, zc, zeta, wzi, Zw = stage_brackets(vf, t, z)
 
     # escalations independent of the X/Y search (field._update_state_position)
     esc_zt = torch.maximum(
@@ -497,7 +455,6 @@ def cgrid_cached_eval(vf, t, z, y, x, particles):
         c = _load_soa_cache(particles, vf)
 
     q = index_search.query_xyz(y, x, spec.spherical)
-    xsi = None
     if c is None:
         # first eval of this kernel invocation: full batch
         cgrid_cached_eval.full_evals += 1
@@ -509,7 +466,8 @@ def cgrid_cached_eval(vf, t, z, y, x, particles):
         else:
             yi_g = torch.zeros(y.shape, **i32)
             xi_g = torch.zeros(x.shape, **i32)
-        c = _full(vf, y, x, ti, t1i, zc, wzi, yi_g, xi_g)
+        # K5 on the card (its plain version on the CPU): one launch, every lane
+        c = cgrid_repair.cgrid_full(vf, y, x, q, ti, t1i, zc, wzi, yi_g, xi_g)
         c["ti"] = ti
         c["zi"] = zc
         c["wzi"] = wzi
@@ -518,7 +476,7 @@ def cgrid_cached_eval(vf, t, z, y, x, particles):
             # no kernel-call boundary to reset it)
             vf._stage_cache = c
     else:
-        ok, xsi, eta = index_search.pic_from_rows(c["row"], q)
+        ok, _, _ = index_search.pic_from_rows(c["row"], q)
         finite = torch.isfinite(y) & torch.isfinite(x)
         hit = ok & (ti == c["ti"]) & (zc == c["zi"]) & (wzi == c["wzi"]) & (c["cell"] >= 0)
         # dead/NaN lanes can never resolve: they count as hits (their values
@@ -526,38 +484,19 @@ def cgrid_cached_eval(vf, t, z, y, x, particles):
         miss = ~hit & finite
         if particles is not None:
             miss = miss & particles._mask
-        # the JAX package's rounds run in a while_loop over ceil(cnt/K);
-        # here one host read of the compacted miss lanes sizes a Python loop
-        misses = torch.nonzero(miss).squeeze(1).to(torch.int32)
-        cnt = misses.shape[0]
         K = min(n, max(1024, n // K_DIV))
-        cgrid_cached_eval.checked_lanes += n
-        cgrid_cached_eval.misses += cnt
         c = dict(c)
         c["esc"] = torch.zeros_like(c["esc"])
-        if cnt:
-            xsi = None  # rows change: (xsi, eta) are recomputed below
-            keys = [k for k in _ROUND_KEYS if c[k] is not None] + ["ti", "zi", "wzi"]
-            # clone once: the loaded entries alias the SoA, which is never
-            # updated in place (particles_view)
-            c.update({k: c[k].clone() for k in keys})
-        for r in range(-(-cnt // K)):
-            cgrid_cached_eval.miss_rounds += 1
-            idx = misses[r * K:(r + 1) * K]
-            if idx.shape[0] < K:
-                # a short last round pads with lane n-1, as the JAX package's
-                # clamped compaction does; duplicate writes carry equal values
-                idx = torch.cat([idx, torch.full((K - idx.shape[0],), n - 1, **i32)])
-            il = idx.long()
-            # warm-start the sub-search from the stale cached cell
-            sub = _full(vf, y[il], x[il], ti[il], t1i[il], zc[il], wzi[il],
-                        c["yi"][il], c["xi"][il])
-            sub["ti"], sub["zi"], sub["wzi"] = ti[il], zc[il], wzi[il]
-            for k in keys:
-                c[k].index_put_((il,), sub[k])
+        # the JAX package's rounds run in a while_loop over ceil(cnt/K); on
+        # the card K5 repairs every round in one launch and the counts stay
+        # device tensors, on the CPU the plain loop reads the misses once
+        cnt, rounds = cgrid_repair.cgrid_repair(vf, c, miss, K, y, x, q, ti, t1i, zc, wzi)
+        cgrid_cached_eval.checked_lanes += n
+        cgrid_cached_eval.misses = cgrid_cached_eval.misses + cnt
+        cgrid_cached_eval.miss_rounds = cgrid_cached_eval.miss_rounds + rounds
         vf._stage_cache = c
-    if xsi is None:
-        _, xsi, eta = index_search.pic_from_rows(c["row"], q)
+    # (xsi, eta) from the cell rows, repaired ones included
+    _, xsi, eta = index_search.pic_from_rows(c["row"], q)
 
     u, v, w = _blend(spec, c["row"], xsi, eta, tau, zeta, c["u4"], c["v4"], c["w4"], Zw, y)
 
@@ -579,8 +518,10 @@ def cgrid_cached_eval(vf, t, z, y, x, particles):
     return (u, v)
 
 
-#: plain integer counters, read by chip_smoke.py: full-batch evals, miss
-#: repair rounds, lanes checked against a cache and lanes that missed
+#: counters, read by chip_smoke.py: full-batch evals, miss repair rounds,
+#: lanes checked against a cache and lanes that missed. Integers, except
+#: ``miss_rounds`` and ``misses`` after a repair on the card, which are 0-d
+#: device tensors (read them with ``int()``): counting there reads nothing back
 cgrid_cached_eval.full_evals = 0
 cgrid_cached_eval.miss_rounds = 0
 cgrid_cached_eval.checked_lanes = 0

@@ -193,6 +193,42 @@ def test_stepper_matches_engine(monkeypatch, repair):
         assert np.isfinite(d).all() and (d > 1e-4).any()
 
 
+@pytest.mark.parametrize("last_lane", ["repaired", "not repaired"])
+def test_scatter_sub_leaves_pads_out(monkeypatch, last_lane):
+    """The scatter clamps pad lanes (idx == n) to lane n - 1 with no host
+    read: the planes equal a scatter of the real lanes alone, whether lane
+    n - 1 is itself repaired (its pads carry its own values) or not (they
+    carry its current planes)."""
+    n = 512
+    fs, pset = _warm_batch(monkeypatch, n)
+    monkeypatch.setattr(fused_rk4, "KCAP_MIN", 64)
+    stepper = fused_rk4.FusedRK4Stepper(fs, dict(pset._data), DT)
+    out = fused_rk4.fused_rk4_step(stepper.rowsT, stepper.uvT, stepper.state, stepper.deg2m,
+                                   stepper.inv_t1, stepper.dt)
+    miss = torch.zeros(n)
+    miss[5:400:7] = 1.0
+    miss[n - 1] = 1.0 if last_lane == "repaired" else 0.0
+    idx = stepper.round_idx(miss)
+    assert int((idx == n).sum()) > 0 and bool((idx == n - 1).any()) == (last_lane == "repaired")
+    sub_out = stepper.repair_rk4(stepper.gather_sub(stepper.state, idx), float(stepper.t))
+
+    keep = idx < n  # the boolean-mask scatter this replaces, as a reference
+    want_out, want_rows, want_uv = out.clone(), stepper.rowsT.clone(), stepper.uvT.clone()
+    want_cell = stepper.cell.clone()
+    il = idx[keep]
+    z = torch.zeros(il.shape[0])
+    want_out[:, il] = torch.stack([sub_out["x"][keep], sub_out["y"][keep], sub_out["t"][keep],
+                                   sub_out["dt"][keep], z, z, z, z])
+    want_cell[il] = sub_out["cell"][keep]
+    want_rows[:, il] = stepper._rows_planes(sub_out["cell"][keep])
+    want_uv[:, il] = torch.cat([sub_out["u4"][keep].t(), sub_out["v4"][keep].t()])
+
+    got = stepper.scatter_sub(out.clone(), stepper.rowsT, stepper.uvT, idx, sub_out)
+    for g, w in zip(got, (want_out, want_rows, want_uv)):
+        assert torch.equal(g, w)
+    assert torch.equal(stepper.cell, want_cell)
+
+
 def test_stepper_checks_its_assumptions(monkeypatch):
     fs, pset = _warm_batch(monkeypatch, 16, tdim=3)
     with pytest.raises(ValueError, match="2-level time axis"):
