@@ -870,8 +870,8 @@ def k3_ab(torch, tp, parent_src):
 
 
 def _wrappers():
+    from parcels_tpu_torch.ops import cgrid_repair  # K5 counts its calls in the module
     from parcels_tpu_torch.ops.binned_sample import slab_sample
-    from parcels_tpu_torch.ops.cgrid_repair import cgrid_repair
     from parcels_tpu_torch.ops.flat_rk4 import flat_rk4_step
     from parcels_tpu_torch.ops.fused_rk4 import fused_rk4_step
     from parcels_tpu_torch.ops.interp_kernels import fold_sample
@@ -907,12 +907,13 @@ def cache_counts():
 
 
 class no_host_reads:
-    """K5's launch and round plan, and with ``whole`` every call inside the
-    block, run under ``torch.cuda.set_sync_debug_mode("error")``: a
-    synchronising call raises. The port's module globals are wrapped for the
-    block and restored after it."""
+    """K5's entries (a stage's check, plan and repair; a full eval), and
+    with ``whole`` every call inside the block, run under
+    ``torch.cuda.set_sync_debug_mode("error")``: a synchronising call
+    raises. The port's module globals are wrapped for the block and
+    restored after it."""
 
-    WRAPPED = ("repair_plan", "_launch")
+    WRAPPED = ("cgrid_stage", "cgrid_full")
 
     def __init__(self, torch, whole=False):
         self.torch, self.whole = torch, whole
@@ -1071,20 +1072,32 @@ K5_OPS_PER_PIC = 80
 K5_LANE_BYTES = 20 + 16 + 8 + (40 + 32) + (100 + 32) + 17
 #: bytes of one point-in-cell evaluation: the 15 pic columns of a table row
 K5_PIC_BYTES = 60
+#: bytes a stage's check moves for every lane: the cached row's 15 pic
+#: columns (60), its cell, ti, zi and wzi (16), the stage's ti, zc and wzi
+#: (12), y, x and q (20), the lane mask (1), and (xsi, eta) written (8)
+K5_CHECK_BYTES = 60 + 16 + 12 + 20 + 1 + 8
 
 
-def k5_bound(n, searched, warm_cells, counts, slot, has_w, keys):
+def k5_bound(n, searched, warm_cells, counts, has_w, stage):
     """K5's bound from this run's counts: (ms, by). ``counts`` is the
     kernel's (2,) [pic evaluations, raster re-seeds], one evaluation of
-    each searched lane at its warm cell among them; the warm cells' rows
-    are counted once for each of the ``warm_cells`` distinct cells. A
-    repair also reads each lane's slot and writes the searched lanes' ti,
-    zi and wzi."""
+    each searched lane at its warm cell among them. A full eval reads the
+    warm cells' rows once for each of the ``warm_cells`` distinct cells and
+    writes (xsi, eta). A ``stage`` checks all ``n`` lanes (one pic
+    evaluation each, on its cached row: the searched lanes' warm evaluation
+    among them), zeroes esc of the lanes not searched, reads no lane input
+    twice and writes the searched lanes' ti, zi and wzi."""
     evals, reseeds = (int(v) for v in counts)
-    per_lane = K5_LANE_BYTES + (2 * 16 if has_w else 0) + (12 if keys else 0)
-    rows = evals - searched + warm_cells
-    nbytes = searched * per_lane + rows * K5_PIC_BYTES + reseeds * 8 + (4 * n if slot else 0)
-    return bound(nbytes, evals * K5_OPS_PER_PIC)
+    per_lane = K5_LANE_BYTES + (2 * 16 if has_w else 0)
+    if stage:
+        per_lane += 12 - (20 + 12)
+        nbytes = n * K5_CHECK_BYTES + 4 * (n - searched) + (evals - searched) * K5_PIC_BYTES
+        nops = (n + evals - searched) * K5_OPS_PER_PIC
+    else:
+        per_lane += 8
+        nbytes = (evals - searched + warm_cells) * K5_PIC_BYTES
+        nops = evals * K5_OPS_PER_PIC
+    return bound(nbytes + searched * per_lane + reseeds * 8, nops)
 
 
 def k5_warm(torch, vf, yi_w, xi_w, sel=None):
@@ -1130,49 +1143,134 @@ def k5_lanes(torch, vf, y, x, t, z):
                 t1i=t1i, zc=zc, wzi=wzi)
 
 
-def k5_repair_case(torch, vf, c, miss, k, L, what, time_it=False, plain_reps=1):
-    """K5's repair of ``c`` at ``miss`` against the plain loop's on copies;
-    with ``time_it`` the kernel's and the plain version's times (each call
-    warm-started from the same cells)."""
+class k5_capture:
+    """Inside the block, K5's launcher records a copy of each argument
+    struct it is called with (``structs``); ``replay`` calls the launcher
+    again with one of them, with no wrapper around it: the kernel's device
+    time with a prebuilt struct."""
+
+    def __enter__(self):
+        from parcels_tpu_torch.ops import _build
+
+        self._build = _build
+        self.real = _build.load("cgrid_repair")
+        self.structs = []
+
+        def recorded(ref, stream):
+            self.structs.append(type(ref._obj).from_buffer_copy(ref._obj))
+            return self.real(ref, stream)
+
+        _build._LOADED["cgrid_repair"] = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self._build._LOADED["cgrid_repair"] = self.real
+
+    def replay(self, torch, struct):
+        import ctypes
+
+        err = self.real(ctypes.byref(struct), torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"K5 replay failed with cudaError {err}")
+
+
+def event_ms(torch, fn, before, reps=10, warmup=2, busy=False) -> float:
+    """Mean milliseconds between two CUDA events around each of ``reps``
+    calls of ``fn``; ``before`` (a restore of what a call changes) runs,
+    untimed and synchronised, ahead of each. With ``busy`` the stream spins
+    before the first event, so the call is enqueued before it runs and the
+    interval is its device time alone; without, the interval also holds the
+    host's time to enqueue it (the card waits for it)."""
+    total = 0.0
+    for r in range(warmup + reps):
+        before()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if busy:
+            torch.cuda._sleep(QUEUE_CYCLES // 10)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        if r >= warmup:
+            total += start.elapsed_time(end)
+    return total / reps
+
+
+def restorer(c, ck, lanes):
+    """Copy the cache columns of ``c`` back into ``ck`` at ``lanes`` (the
+    lanes a stage writes)."""
+    def restore():
+        for key, v in c.items():
+            if v is not None:
+                ck[key][lanes] = v[lanes]
+
+    return restore
+
+
+def k5_stage_case(torch, vf, c, mask, k, L, what, time_it=False, plain_reps=1):
+    """K5's stage of cache ``c`` (``cgrid_stage``, under the sync debug mode
+    "error") against its plain version on copies: every cache column, (xsi,
+    eta), the misses, rounds, work list and iteration counts, bit for bit.
+    With ``time_it`` the whole call's time and the kernel's with a prebuilt
+    struct (each call from the same cache), the eager steps the parent ran
+    around its kernel (its hit check, ``repair_plan``, the second
+    ``pic_from_rows``), and the plain version's."""
+    from parcels_tpu_torch._core import index_search
     from parcels_tpu_torch.ops import cgrid_repair as k5
 
     def copy():
         return {key: (v.clone() if v is not None else None) for key, v in c.items()}
 
     args = (L["y"], L["x"], L["q"], L["ti"], L["t1i"], L["zc"], L["wzi"])
-    slot, _, _ = k5.repair_plan(miss, k)
-    searched, warm_cells = k5_warm(torch, vf, c["yi"], c["xi"], slot >= 0)
-    del slot
+    dev = L["y"].device
     ck, cp = copy(), copy()
-    counts = torch.zeros(2, dtype=torch.int64, device=L["y"].device)
-    cnt, rounds = k5.cgrid_repair(vf, ck, miss, k, *args, iters=counts)
+    kc, pc = (torch.zeros(2, dtype=torch.int64, device=dev) for _ in range(2))
+    with no_host_reads(torch):
+        got = k5.cgrid_stage(vf, ck, *args, mask, k, iters=kc)
     torch.cuda.synchronize()
-    pargs = (L["y"], L["x"], L["ti"], L["t1i"], L["zc"], L["wzi"])
     t0 = time.perf_counter()
-    pcnt, prounds = k5.cgrid_repair_plain(vf, cp, miss, k, *pargs)
+    ref = k5.cgrid_stage_plain(vf, cp, *args, mask, k, iters=pc)
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
-    if (int(cnt), int(rounds)) != (pcnt, prounds):
-        raise AssertionError(f"K5 ({what}): plan {int(cnt)} misses in {int(rounds)} rounds, "
-                             f"the plain loop {pcnt} in {prounds}")
-    err = k5_same(torch, ck, cp, what)
-    out = dict(misses=pcnt, rounds=prounds, evals=int(counts[0]), reseeds=int(counts[1]),
-               plain_ms=1e3 * plain_s, counts=counts, searched=searched,
-               warm_cells=warm_cells, max_abs_err=err)
-    del cp
+    plan = (int(got.cnt), int(got.rounds), int(got.length))
+    if plan != (ref.cnt, ref.rounds, ref.length) or not torch.equal(got.work[:ref.length],
+                                                                    ref.work):
+        raise AssertionError(f"K5 ({what}): plan {plan} or its work list differs from the "
+                             f"plain loop's {(ref.cnt, ref.rounds, ref.length)}")
+    err = max(k5_same(torch, ck, cp, what),
+              k5_same(torch, dict(xsi=got.xsi, eta=got.eta), dict(xsi=ref.xsi, eta=ref.eta),
+                      what))
+    if not torch.equal(kc, pc):
+        raise AssertionError(f"K5 ({what}): iteration counts {kc.tolist()}, plain {pc.tolist()}")
+    lanes = ref.work.long()
+    _, warm_cells = k5_warm(torch, vf, c["yi"], c["xi"], lanes)
+    out = dict(misses=ref.cnt, rounds=ref.rounds, searched=ref.length, evals=int(kc[0]),
+               reseeds=int(kc[1]), plain_ms=1e3 * plain_s, counts=kc, warm_cells=warm_cells,
+               max_abs_err=err)
+    del cp, got, ref
     if time_it:
-        yi0, xi0 = c["yi"].clone(), c["xi"].clone()
+        restore = restorer(c, ck, lanes)
+        with k5_capture() as cap:
+            restore()
+            keep = k5.cgrid_stage(vf, ck, *args, mask, k)
+        out["ms"] = event_ms(torch, lambda: k5.cgrid_stage(vf, ck, *args, mask, k), restore)
+        out["kernel_ms"] = event_ms(torch, lambda: cap.replay(torch, cap.structs[-1]), restore,
+                                    busy=True)
+        del keep
 
-        def run():
-            ck["yi"].copy_(yi0)
-            ck["xi"].copy_(xi0)
-            k5.cgrid_repair(vf, ck, miss, k, *args)
+        def eager():
+            miss = k5.stage_miss(ck, *args[:3], L["ti"], L["zc"], L["wzi"], mask)
+            torch.zeros_like(ck["esc"])
+            k5.repair_plan(miss, k)
+            index_search.pic_from_rows(ck["row"], L["q"])
 
-        out["ms"] = cuda_ms(torch, run)
+        restore()
+        out["parent_eager_ms"] = cuda_ms(torch, eager)
         if plain_reps > 1:
             def plain():
                 cq = copy()
-                k5.cgrid_repair_plain(vf, cq, miss, k, *pargs)
+                k5.cgrid_stage_plain(vf, cq, *args, mask, k)
 
             out["plain_ms"] = cuda_ms(torch, plain, reps=plain_reps, warmup=0)
     return out
@@ -1193,20 +1291,47 @@ def rotated_cgrid(torch, tp, device, xdim=400, ydim=300):
     return fs
 
 
+def raster_order(torch, vf, y, x):
+    """The lanes' permutation that orders them by the bin of the grid's
+    lookup raster (stable), as a counting sort by bin would."""
+    lkm = vf.grid.lookup_meta
+    (ly0, lx0), (lys, lxs) = lkm["origin"], lkm["step"]
+    lny, lnx = vf.grid.garrs["lookup_yi"].shape
+    ry = torch.floor((y - ly0) / lys).nan_to_num(0.0).clamp(0, lny - 1).long()
+    rx = torch.floor((x - lx0) / lxs).nan_to_num(0.0).clamp(0, lnx - 1).long()
+    return torch.argsort(ry * lnx + rx, stable=True)
+
+
+def raster_division(torch, v, step):
+    """torch divides a card tensor by a Python float as an f32 product with
+    the reciprocal taken in double and rounded to f32 (for config 5's
+    latitude step that differs in the last bit from the f32 reciprocal of
+    the f32 step); K5's raster index relies on it."""
+    if v.device.type == "cuda" and not torch.equal(v / step, v * float(np.float32(1.0 / step))):
+        raise AssertionError("torch's division by a Python float on the card is not the "
+                             "product with the reciprocal K5 reproduces")
+
+
 def k5_phase(torch, tp, fs5, soa8, device="cuda"):
     """Phase 25: K5 against its plain version bit for bit on every cache
-    column, at (c)'s cold 2^23 lanes (a full eval, and the repair of every
-    lane from invalid keys in rounds of 8192, as (c)'s first stage runs it),
-    on a steady stage's misses from phase 8's SoA, on a rotated flat grid
-    with raster-outside lanes in every round and a walking pad lane, and on
-    NaN and infinite lanes with invalid keys. Returns the kernel line."""
+    column, (xsi, eta) and the iteration counts: (c)'s cold full eval at
+    2^23 lanes (``cgrid_full``), then stages (``cgrid_stage``, under the
+    sync debug mode "error", with their misses, rounds and work lists): the
+    repair of every lane from invalid keys in rounds of 8192, as (c)'s first
+    stage runs it; the next stage from phase 8's SoA; 2^16 lanes with NaN
+    and infinite positions, invalid keys and a NaN pad lane; and a rotated
+    flat curvilinear grid with lanes outside its lookup raster in every one
+    of at least 3 rounds and a dead lane that moved as the last round's pad.
+    With times (the whole call, the kernel with a prebuilt struct, the
+    parent's eager steps, the plain version), bounds, registers, and the
+    cold full eval on lanes in raster-bin order (a reading). Returns the
+    kernel line."""
     from parcels_tpu_torch._core.particles_view import Particles
     from parcels_tpu_torch.ops import cgrid_repair as k5
     from parcels_tpu_torch.ops import stagecache
 
     dev = torch.device(device)
     vf = fs5.build_views(fs5.device_arrays()).UV
-    spec = vf.grid.spec
     n = soa8["x"].shape[0]
     seeds = config5_seeds(n)
     f32 = dict(dtype=torch.float32, device=dev)
@@ -1216,33 +1341,51 @@ def k5_phase(torch, tp, fs5, soa8, device="cuda"):
     full = (L["y"], L["x"], L["q"], L["ti"], L["t1i"], L["zc"], L["wzi"], zero, zero)
     res = {}
 
+    lkm = vf.grid.lookup_meta
+    for v, o, st in zip((y, x), lkm["origin"], lkm["step"]):
+        raster_division(torch, v - o, st)
+
     # (c)'s cold full eval: every lane from cell (0, 0)
-    counts = torch.zeros(2, dtype=torch.int64, device=dev)
-    got = k5.cgrid_full(vf, *full, iters=counts)
+    counts, pcounts = (torch.zeros(2, dtype=torch.int64, device=dev) for _ in range(2))
+    with no_host_reads(torch):
+        got = k5.cgrid_full(vf, *full, iters=counts)
     torch.cuda.synchronize()
-    want = k5.cgrid_full_plain(vf, *[a for i, a in enumerate(full) if i != 2])
+    plain_args = [a for i, a in enumerate(full) if i != 2]
+    want = k5.cgrid_full_plain(vf, *plain_args, iters=pcounts)
     err = k5_same(torch, got, want, "cold full eval, 2^23 lanes")
+    if not torch.equal(counts, pcounts):
+        raise AssertionError(f"K5 cold full eval: iteration counts {counts.tolist()}, plain "
+                             f"{pcounts.tolist()}")
+    del got
     ms = cuda_ms(torch, lambda: k5.cgrid_full(vf, *full))
-    plain_ms = cuda_ms(torch, lambda: k5.cgrid_full_plain(
-        vf, *[a for i, a in enumerate(full) if i != 2]), reps=3, warmup=1)
+    plain_ms = cuda_ms(torch, lambda: k5.cgrid_full_plain(vf, *plain_args), reps=3, warmup=1)
     _, warm_cells = k5_warm(torch, vf, zero, zero)
-    bound_ms, bound_by = k5_bound(n, n, warm_cells, counts, False, False, False)
+    bound_ms, bound_by = k5_bound(n, n, warm_cells, counts, False, False)
+    # the same lanes in raster-bin order (a counting sort's order, free)
+    perm = raster_order(torch, vf, y, x)
+    fullp = tuple(a[perm] if not isinstance(a, tuple) else tuple(v[perm] for v in a)
+                  for a in full)
+    gotp = k5.cgrid_full(vf, *fullp)
+    k5_same(torch, gotp, {key: v[perm] if v is not None else None for key, v in want.items()},
+            "cold full eval in raster-bin order")
+    del gotp
+    order_ms = cuda_ms(torch, lambda: k5.cgrid_full(vf, *fullp))
+    del fullp, perm
     res["cold_full"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                             evals=int(counts[0]), reseeds=int(counts[1]),
-                            warm_cells=warm_cells, max_abs_err=err)
-    del got
+                            warm_cells=warm_cells, max_abs_err=err, raster_order_ms=order_ms)
 
     # (c)'s first stage: the SoA keys are invalid, every lane misses and is
     # repaired from cell (0, 0), in rounds of 8192
     c = dict(want)
+    del c["xsi"], c["eta"]
     c.update(cell=torch.full((n,), -1, dtype=torch.int32, device=dev), yi=zero.clone(),
              xi=zero.clone(), ti=L["ti"].clone(), zi=L["zc"].clone(), wzi=L["wzi"].clone())
     del want
     K = min(n, max(1024, n // stagecache.K_DIV))
-    miss = torch.ones(n, dtype=torch.bool, device=dev)
-    r = k5_repair_case(torch, vf, c, miss, K, L, "cold repair, 2^23 lanes", time_it=True)
+    r = k5_stage_case(torch, vf, c, None, K, L, "cold repair, 2^23 lanes", time_it=True)
     r["bound_ms"], r["bound_by"] = k5_bound(n, r["searched"], r["warm_cells"], r.pop("counts"),
-                                            True, False, True)
+                                            False, True)
     res["cold_repair"] = r
     del c
 
@@ -1251,28 +1394,23 @@ def k5_phase(torch, tp, fs5, soa8, device="cuda"):
     part = Particles(pd, pd["_active"])
     c = stagecache._load_soa_cache(part, vf)
     L8 = k5_lanes(torch, vf, pd["y"], pd["x"], pd["t"], pd["z"])
-    from parcels_tpu_torch._core import index_search
-
-    ok, _, _ = index_search.pic_from_rows(c["row"], L8["q"])
-    hit = ok & (L8["ti"] == c["ti"]) & (L8["zc"] == c["zi"]) & (L8["wzi"] == c["wzi"]) & (
-        c["cell"] >= 0)
-    miss = ~hit & torch.isfinite(pd["y"]) & torch.isfinite(pd["x"]) & pd["_active"]
-    c["esc"] = torch.zeros_like(c["esc"])
-    n8 = miss.shape[0]
+    n8 = L8["y"].shape[0]
     K8 = min(n8, max(1024, n8 // stagecache.K_DIV))
-    r = k5_repair_case(torch, vf, c, miss, K8, L8, "steady stage from phase 8", time_it=True,
-                       plain_reps=3)
+    r = k5_stage_case(torch, vf, c, pd["_active"], K8, L8, "steady stage from phase 8",
+                      time_it=True, plain_reps=3)
     r["bound_ms"], r["bound_by"] = k5_bound(n8, r["searched"], r["warm_cells"],
-                                            r.pop("counts"), True, False, True)
+                                            r.pop("counts"), False, True)
     res["steady"] = r
     del c, L8, pd, part
 
-    # NaN and infinite lanes and invalid keys, on 2^16 lanes of the grid
+    # NaN and infinite lanes and invalid keys, on 2^16 lanes of the grid;
+    # the last lane is NaN, the pad of the short last round
     m = min(1 << 16, n)
     rng = np.random.default_rng(26)
     ys, xs = y[:m].clone(), x[:m].clone()
     base = k5.cgrid_full_plain(vf, ys, xs, *[L[k][:m] for k in ("ti", "t1i", "zc", "wzi")],
                                zero[:m], zero[:m])
+    del base["xsi"], base["eta"]
     base.update(ti=L["ti"][:m].clone(), zi=L["zc"][:m].clone(), wzi=L["wzi"][:m].clone())
     base["cell"][::13] = -1
     ys = ys + torch.as_tensor(rng.uniform(-0.3, 0.3, m), **f32)
@@ -1280,12 +1418,16 @@ def k5_phase(torch, tp, fs5, soa8, device="cuda"):
     ys[::97] = float("nan")
     xs[::89] = float("inf")
     xs[::83] = float("-inf")
+    ys[-1] = float("nan")
     Lm = k5_lanes(torch, vf, ys, xs, torch.zeros(m, **f32), torch.ones(m, **f32))
-    miss = torch.as_tensor(rng.random(m) < 0.5, device=dev)
-    miss[::97] = True
-    miss[::89] = True
-    res["nonfinite"] = k5_repair_case(torch, vf, base, miss, 1024, Lm,
-                                      "NaN, infinite lanes and invalid keys")
+    mask = torch.as_tensor(rng.random(m) < 0.5, device=dev)
+    miss = k5.stage_miss(base, Lm["y"], Lm["x"], Lm["q"], Lm["ti"], Lm["zc"], Lm["wzi"], mask)
+    if int(miss.sum()) % 1024 == 0:  # keep the last round short
+        mask[torch.nonzero(miss)[0]] = False
+    r = k5_stage_case(torch, vf, base, mask, 1024, Lm, "NaN, infinite lanes and invalid keys")
+    if r["searched"] != r["misses"] + 1:
+        raise AssertionError("phase 25: the NaN lane n - 1 was not the pad of a short round")
+    res["nonfinite"] = r
     res["nonfinite"].pop("counts")
     del base, L, y, x, zero, full
 
@@ -1308,6 +1450,7 @@ def k5_phase(torch, tp, fs5, soa8, device="cuda"):
     zr = torch.zeros(mr, dtype=torch.int32, device=dev)
     base = k5.cgrid_full_plain(vr, Lr["y"], Lr["x"], Lr["ti"], Lr["t1i"], Lr["zc"], Lr["wzi"],
                                zr, zr)
+    del base["xsi"], base["eta"]
     base.update(ti=Lr["ti"].clone(), zi=Lr["zc"].clone(), wzi=Lr["wzi"].clone())
     moved = rng.random(mr) < 0.72
     moved[-1] = True
@@ -1318,48 +1461,48 @@ def k5_phase(torch, tp, fs5, soa8, device="cuda"):
     span = g.lon.max() - g.lon.min()
     x2 = np.where(far, g.lon.max() + 0.2 * span + rng.uniform(0, 5e3, mr), x2)
     Lr2 = k5_lanes(torch, vr, torch.as_tensor(y2, **f32), torch.as_tensor(x2, **f32), tz, tz)
-    # torch divides a card tensor by a Python float as a product with the
-    # f32 reciprocal; K5's raster index relies on it
     (ly0, lx0), (lys, lxs) = g.lookup_meta()["origin"], g.lookup_meta()["step"]
-    inv = float(np.float32(1.0) / np.float32(lys))
-    if dev.type == "cuda" and not torch.equal((Lr2["y"] - ly0) / lys, (Lr2["y"] - ly0) * inv):
-        raise AssertionError("torch's division by a Python float on the card is not the "
-                             "product with its f32 reciprocal that K5 reproduces")
-    ok, _, _ = index_search.pic_from_rows(base["row"], Lr2["q"])
+    raster_division(torch, Lr2["y"] - ly0, lys)
     live = torch.ones(mr, dtype=torch.bool, device=dev)
     live[-1] = False  # a dead lane: the pad of the last, short round
-    miss = ~ok & live & torch.isfinite(Lr2["y"]) & torch.isfinite(Lr2["x"])
+    miss = k5.stage_miss(base, Lr2["y"], Lr2["x"], Lr2["q"], Lr2["ti"], Lr2["zc"], Lr2["wzi"],
+                         live)
     outside = Lr2["x"] > lx0 + lxs * g._lookup["xi"].shape[1]
     rounds = list(k5.plain_rounds(miss, 1024))
     if not (len(rounds) >= 3 and int(miss.sum()) % 1024 and all(
             bool(outside[i.long()].any()) for i in rounds)):
         raise AssertionError("phase 25: the rotated case lacks short rounds or outside lanes")
     before = base["cell"][-1].clone()
-    r = k5_repair_case(torch, vr, base, miss, 1024, Lr2, "rotated flat grid")
-    if int(before) == -1 or r["rounds"] < 3:
-        raise AssertionError("phase 25: the pad lane did not start in a cell")
+    r = k5_stage_case(torch, vr, base, live, 1024, Lr2, "rotated flat grid")
+    if int(before) == -1 or r["rounds"] < 3 or r["searched"] != r["misses"] + 1:
+        raise AssertionError("phase 25: the pad lane did not start in a cell or was not searched")
     res["rotated"] = dict(r, outside=int((outside & miss).sum()))
     res["rotated"].pop("counts")
     del fr, vr
     torch.cuda.empty_cache()
 
     cold, steady = res["cold_full"], res["steady"]
-    log(f"[K5] cgrid_repair bit for bit against its plain version on every cache column: "
-        f"(c)'s cold full eval at {n} lanes: kernel {cold['ms']:.4f} ms, plain "
-        f"{cold['plain_ms']:.1f} ms, bound {cold['bound_ms']:.4f} ms ({cold['bound_by']}; "
-        f"{cold['evals']} pic evaluations, {cold['reseeds']} re-seeds counted by the kernel, "
-        f"{cold['warm_cells']} distinct warm cells; max abs err {cold['max_abs_err']:.3g}); "
-        f"(c)'s cold repair of every lane in rounds of {K}: {res['cold_repair']}; a steady "
-        f"stage from phase 8's SoA: {steady}; NaN/inf lanes and invalid keys: "
-        f"{res['nonfinite']}; rotated flat grid, {mr} lanes, raster-outside lanes in every "
-        f"round and a walking pad: {res['rotated']}; ptxas: {ptxas_lines('cgrid_repair')}; "
-        f"no single library call computes this search")
+    log(f"[K5] cgrid_full and cgrid_stage bit for bit against their plain versions on every "
+        f"cache column, (xsi, eta) and the iteration counts: (c)'s cold full eval at {n} "
+        f"lanes: kernel {cold['ms']:.4f} ms, plain {cold['plain_ms']:.1f} ms, bound "
+        f"{cold['bound_ms']:.4f} ms ({cold['bound_by']}; {cold['evals']} pic evaluations, "
+        f"{cold['reseeds']} re-seeds counted by the kernel, {cold['warm_cells']} distinct "
+        f"warm cells; max abs err {cold['max_abs_err']:.3g}); the same lanes in raster-bin "
+        f"order {cold['raster_order_ms']:.4f} ms; (c)'s cold stage, every lane a miss, in "
+        f"rounds of {K}: {res['cold_repair']}; a steady stage from phase 8's SoA: {steady}; "
+        f"NaN/inf lanes and invalid keys: {res['nonfinite']}; rotated flat grid, {mr} lanes, "
+        f"raster-outside lanes in every round and a walking pad: {res['rotated']}; ptxas: "
+        f"{ptxas_lines('cgrid_repair')}; no single library call computes this search")
     err = max(v["max_abs_err"] for v in res.values())
     return dict(max_abs_err=err, ms=cold["ms"], plain_ms=cold["plain_ms"],
                 bound_ms=cold["bound_ms"], bound_by=cold["bound_by"], library_ms=None,
-                steady_ms=steady["ms"], steady_plain_ms=steady["plain_ms"],
-                steady_bound_ms=steady["bound_ms"], steady_misses=steady["misses"],
+                raster_order_ms=cold["raster_order_ms"],
+                steady_ms=steady["ms"], steady_kernel_ms=steady["kernel_ms"],
+                steady_parent_eager_ms=steady["parent_eager_ms"],
+                steady_plain_ms=steady["plain_ms"], steady_bound_ms=steady["bound_ms"],
+                steady_misses=steady["misses"],
                 cold_repair_ms=res["cold_repair"]["ms"],
+                cold_repair_kernel_ms=res["cold_repair"]["kernel_ms"],
                 cold_repair_plain_ms=res["cold_repair"]["plain_ms"],
                 cold_repair_bound_ms=res["cold_repair"]["bound_ms"])
 
@@ -3853,6 +3996,93 @@ def chunking_ab(torch, root):
     log(json.dumps({"chunking": res, "root": root}))
 
 
+def stage_split(torch, fs, soa):
+    """The steady stage of (c): the next stage 1 after ``soa``, one engine
+    block of 2^21 lanes, each part from the same cache (restored untimed).
+    On a tree whose K5 checks the stage itself (``cgrid_stage``): the whole
+    call and the kernel alone (a replay with a prebuilt struct). On an
+    earlier tree: the eager hit check (stagecache.py:479-491 of PR 13),
+    ``repair_plan`` with ``_launch`` (its ``cgrid_repair``), the kernel
+    alone, the second ``pic_from_rows``, and the three in a row. Times in
+    ms; the kernel's are device time, the rest hold the host's."""
+    from parcels_tpu_torch._core import index_search
+    from parcels_tpu_torch._core.engine import DEFAULT_BLOCK_SIZE
+    from parcels_tpu_torch._core.particles_view import Particles
+    from parcels_tpu_torch.ops import cgrid_repair as k5
+    from parcels_tpu_torch.ops import stagecache
+
+    vf = fs.build_views(fs.device_arrays()).UV
+    part = Particles({k: v[:DEFAULT_BLOCK_SIZE] for k, v in soa.items() if torch.is_tensor(v)},
+                     soa["_active"][:DEFAULT_BLOCK_SIZE])
+    c = stagecache._load_soa_cache(part, vf)
+    pd = part._data
+    L = k5_lanes(torch, vf, pd["y"], pd["x"], pd["t"], pd["z"])
+    n = L["y"].shape[0]
+    K = min(n, max(1024, n // stagecache.K_DIV))
+    args = (L["y"], L["x"], L["q"], L["ti"], L["t1i"], L["zc"], L["wzi"])
+    mask = part._mask
+
+    def check():
+        ok, _, _ = index_search.pic_from_rows(ck["row"], L["q"])
+        finite = torch.isfinite(L["y"]) & torch.isfinite(L["x"])
+        hit = ok & (L["ti"] == ck["ti"]) & (L["zc"] == ck["zi"]) & (L["wzi"] == ck["wzi"]) & (
+            ck["cell"] >= 0)
+        ck["esc"] = torch.zeros_like(ck["esc"])
+        return ~hit & finite & mask
+
+    ck = {key: v.clone() if v is not None else None for key, v in c.items()}
+    miss = check()
+    lanes = torch.cat([torch.nonzero(miss).squeeze(1),
+                       torch.full((1,), n - 1, dtype=torch.int64, device=miss.device)])
+    restore = restorer(c, ck, lanes)
+    out = dict(n=n, misses=int(miss.sum()))
+    stage = hasattr(k5, "cgrid_stage")
+    if stage:
+        def call():
+            return k5.cgrid_stage(vf, ck, *args, mask, K)
+    else:
+        plans = []
+        real_plan = k5.repair_plan
+
+        def kept_plan(m, k):
+            plans.append(real_plan(m, k))
+            return plans[-1]
+
+        def call():
+            return k5.cgrid_repair(vf, ck, miss, K, *args)
+
+    with k5_capture() as cap:
+        restore()
+        if stage:
+            keep = call()
+        else:
+            k5.repair_plan = kept_plan
+            try:
+                keep = call()
+            finally:
+                k5.repair_plan = real_plan
+    struct = cap.structs[-1]
+    if not stage:  # the plan and the round counts the launch read live on
+        nwalk = torch.zeros(n // K + 1, dtype=torch.int32, device=miss.device)
+        struct.slot, struct.nwalk = plans[-1][0].data_ptr(), nwalk.data_ptr()
+    out["call_ms"] = event_ms(torch, call, restore)
+    out["kernel_ms"] = event_ms(torch, lambda: cap.replay(torch, struct), restore, busy=True)
+    if not stage:
+        out["check_ms"] = event_ms(torch, check, restore)
+        out["pic_ms"] = event_ms(torch, lambda: index_search.pic_from_rows(ck["row"], L["q"]),
+                                 restore)
+
+        def sequence():
+            k5.cgrid_repair(vf, ck, check(), K, *args)
+            index_search.pic_from_rows(ck["row"], L["q"])
+
+        out["stage_ms"] = event_ms(torch, sequence, restore)
+    else:
+        out["stage_ms"] = out["call_ms"]
+    del keep
+    return out
+
+
 def cgrid_ab(torch, root, steps=24, dt=600.0):
     """``--cgrid ROOT``: paths (c) and (d) on the port at ``ROOT`` (this
     checkout or an earlier one), its kernels built from ``ROOT``: phase 8's
@@ -3866,8 +4096,9 @@ def cgrid_ab(torch, root, steps=24, dt=600.0):
     from parcels_tpu_torch.ops import _build
     from parcels_tpu_torch.ops.fused_rk4 import FusedRK4Stepper
 
-    try:  # K5's launch count, where the tree has K5
-        k5 = importlib.import_module("parcels_tpu_torch.ops.cgrid_repair").cgrid_repair
+    try:  # K5's launch count, where the tree has K5 (on its wrapper before PR 14)
+        k5 = importlib.import_module("parcels_tpu_torch.ops.cgrid_repair")
+        k5 = getattr(k5, "cgrid_repair", k5)
     except ImportError:
         k5 = None
 
@@ -3892,6 +4123,7 @@ def cgrid_ab(torch, root, steps=24, dt=600.0):
     stats = pset.last_run_stats
     res["steps2_6"] = dict(rate=stats["particle_steps_per_s"], wall_s=stats["wall_s"],
                            cache=cache_counts(), k5=k5_launches())
+    res["stage"] = stage_split(torch, fs5, dict(pset._data))
     del pset
     warm = dict(run_cgrid(tp, fs5, seeds, 1, int(dt))._data)
     stepper = FusedRK4Stepper(fs5, warm, dt)

@@ -197,7 +197,7 @@ class FieldView:
 class VectorFieldView:
     __slots__ = (
         "name", "U", "V", "W", "grid", "igrid", "interp_method", "vector_type",
-        "_stage_cache", "_sc_owner", "_cell_table", "_tables",
+        "_stage_cache", "_sc_owner", "_cell_table", "_tables", "_k5",
     )
 
     def __init__(self, name, U, V, W, interp_method, sc_owner=False, tables=None):
@@ -219,6 +219,8 @@ class VectorFieldView:
         self._cell_table = None
         # fused [U | V] z-row table (uxcol.ux_colT_uv_table), shared as FieldView._tables
         self._tables = {} if tables is None else tables
+        # K5's launch fields that depend only on this view (ops/cgrid_repair._view_args)
+        self._k5 = None
 
     def eval(self, t, z, y, x, particles: Particles | None = None):
         from parcels_tpu_torch.ops import stagecache, uxcache

@@ -354,7 +354,7 @@ def _make_point_in_cell(lon2d, lat2d, y, x, spherical: bool):
 
 def curvilinear_search(
     lon2d, lat2d, y, x, yi_guess, xi_guess, *, spherical: bool, lookup: dict | None = None,
-    n_walk: int = 12, pic_table=None,
+    n_walk: int = 12, pic_table=None, stats=None,
 ):
     """Locate particles in a 2-D curvilinear grid (the JAX package's search).
 
@@ -366,6 +366,9 @@ def curvilinear_search(
 
     Returns (yi, eta, xi, xsi) with yi/xi = GRID_SEARCH_ERROR where the walk
     failed and RIGHT_OUT_OF_BOUNDS outside the grid's bounding raster.
+    ``stats``, an (n, 2) int64 tensor, gets each lane's point-in-cell
+    evaluations and raster re-seeds added, as a lane that stops walking once
+    it is found or stalled would make them (what K5 counts).
     """
     ydim, xdim = lon2d.shape
     yi = torch.clamp(yi_guess, 0, ydim - 2).to(torch.int32)
@@ -379,6 +382,10 @@ def curvilinear_search(
     else:
         pic = _make_point_in_cell(lon2d, lat2d, y, x, spherical)
     in_cell, xsi, eta = pic(yi, xi)
+    if stats is not None:
+        stats[:, 0] += 1
+        if lookup is not None:
+            stats[:, 1] += ~in_cell
 
     if lookup is not None:
         # Re-seed misses from the coarse raster. The JAX package skips this
@@ -412,12 +419,15 @@ def curvilinear_search(
             torch.zeros_like(xi), torch.zeros_like(y, dtype=torch.float32),
             torch.zeros_like(y, dtype=torch.float32)]
     hopeless = outside | ~(torch.isfinite(y) & torch.isfinite(x))
+    stalled_any = torch.zeros_like(found)
     i = 0
     # the loop condition is the JAX package's: lanes outside the raster are
     # hopeless but keep walking while other lanes are unresolved, and one
     # that is found on the way is no longer reported out of bounds
     while i < n_walk and bool((~found & ~hopeless).any()):
         ok, xsi_n, eta_n = pic(yi, xi)
+        if stats is not None:
+            stats[:, 0] += ~found & ~stalled_any
         # track the least-outside cell seen: a walk that oscillates on an
         # edge where f32 rounding rejects both neighbours is rescued below
         d_n = _outside_dist(xsi_n, eta_n)
@@ -440,6 +450,7 @@ def curvilinear_search(
         xi = torch.where(found, xi, xi_new)
         found = found2
         hopeless = hopeless | stalled
+        stalled_any = stalled_any | stalled
         i += 1
 
     # rescue oscillating edge lanes within 1% of a cell of the boundary;

@@ -303,7 +303,7 @@ class FusedRK4Stepper:
         def sample(xs, ys, ts, yi_w, xi_w):
             q = index_search.query_xyz(ys, xs, spec.spherical)
             c = cgrid_repair.cgrid_full(vf, ys, xs, q, ti, t1i, zc, zc, yi_w, xi_w)
-            _, xsi, eta = index_search.pic_from_rows(c["row"], q)
+            xsi, eta = c["xsi"], c["eta"]
             tau = torch.clamp(ts * self.inv_t1, 0.0, 1.0)
             u, v, _ = stagecache._blend(spec, c["row"], xsi, eta, tau, zeta, c["u4"], c["v4"],
                                         None, 1, ys)

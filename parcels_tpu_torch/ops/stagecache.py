@@ -17,9 +17,10 @@ particle SoA (``_sc_*`` columns, owner field only).
 
 Misses (lanes that crossed a cell edge or a time/depth bracket mid-step) are
 repaired in compacted rounds of K lanes through the full search + gather
-path (``ops/cgrid_repair.py``: on the card one launch of K5 for every round,
-with no host read). Out-of-bounds samples return 0 and escalate states as
-``field.py`` does: the cache is semantically invisible.
+path (``ops/cgrid_repair.py``: on the card one K5 call a stage checks every
+lane, compacts the misses, repairs every round and gives every lane's
+(xsi, eta), with no host read). Out-of-bounds samples return 0 and escalate
+states as ``field.py`` does: the cache is semantically invisible.
 
 Not ported, by design: the JAX package's corner-column tables
 (``_col_quad``, ``ops/colgather.py``). They are a TPU row-gather layout, and
@@ -426,7 +427,19 @@ def stage_brackets(vf, t, z):
 
 
 def cgrid_cached_eval(vf, t, z, y, x, particles):
-    """Drop-in replacement for VectorFieldView.eval on curvilinear C-grids."""
+    """Drop-in replacement for VectorFieldView.eval on curvilinear C-grids.
+
+    The JAX package runs a stage as XLA ops on its device: the hit check,
+    a ``while_loop`` over rounds of K compacted misses whose search holds
+    the curvilinear walk's early-exit ``while_loop``, and (xsi, eta) from
+    the cached rows. Here one call does all of it: K5
+    (``cgrid_repair.cgrid_stage``) on the card, its plain version on the
+    CPU; a kernel call's first eval is one ``cgrid_full``. On the card a
+    stage's time is bounded by the check's read of every lane's cached row
+    and keys (121 bytes a lane) and the misses' scattered row and field
+    reads; the kernel moves them in 16-byte vectors and searches only its
+    work list, and nothing is read back to the host.
+    """
     from parcels_tpu_torch._core.field import _escalate
     from parcels_tpu_torch.ops import cgrid_repair
 
@@ -466,8 +479,9 @@ def cgrid_cached_eval(vf, t, z, y, x, particles):
         else:
             yi_g = torch.zeros(y.shape, **i32)
             xi_g = torch.zeros(x.shape, **i32)
-        # K5 on the card (its plain version on the CPU): one launch, every lane
+        # K5 on the card (its plain version on the CPU): one call, every lane
         c = cgrid_repair.cgrid_full(vf, y, x, q, ti, t1i, zc, wzi, yi_g, xi_g)
+        xsi, eta = c.pop("xsi"), c.pop("eta")
         c["ti"] = ti
         c["zi"] = zc
         c["wzi"] = wzi
@@ -476,27 +490,19 @@ def cgrid_cached_eval(vf, t, z, y, x, particles):
             # no kernel-call boundary to reset it)
             vf._stage_cache = c
     else:
-        ok, _, _ = index_search.pic_from_rows(c["row"], q)
-        finite = torch.isfinite(y) & torch.isfinite(x)
-        hit = ok & (ti == c["ti"]) & (zc == c["zi"]) & (wzi == c["wzi"]) & (c["cell"] >= 0)
-        # dead/NaN lanes can never resolve: they count as hits (their values
-        # are masked by the caller) so they take no repair capacity
-        miss = ~hit & finite
-        if particles is not None:
-            miss = miss & particles._mask
         K = min(n, max(1024, n // K_DIV))
         c = dict(c)
-        c["esc"] = torch.zeros_like(c["esc"])
-        # the JAX package's rounds run in a while_loop over ceil(cnt/K); on
-        # the card K5 repairs every round in one launch and the counts stay
-        # device tensors, on the CPU the plain loop reads the misses once
-        cnt, rounds = cgrid_repair.cgrid_repair(vf, c, miss, K, y, x, q, ti, t1i, zc, wzi)
+        # the JAX package checks the cache and runs the repair rounds in a
+        # while_loop over ceil(cnt/K); on the card one K5 call checks, plans
+        # and repairs every round and the counts stay device tensors, on the
+        # CPU the plain loop reads the misses once
+        mask = particles._mask if particles is not None else None
+        st = cgrid_repair.cgrid_stage(vf, c, y, x, q, ti, t1i, zc, wzi, mask, K)
+        xsi, eta = st.xsi, st.eta
         cgrid_cached_eval.checked_lanes += n
-        cgrid_cached_eval.misses = cgrid_cached_eval.misses + cnt
-        cgrid_cached_eval.miss_rounds = cgrid_cached_eval.miss_rounds + rounds
+        cgrid_cached_eval.misses = cgrid_cached_eval.misses + st.cnt
+        cgrid_cached_eval.miss_rounds = cgrid_cached_eval.miss_rounds + st.rounds
         vf._stage_cache = c
-    # (xsi, eta) from the cell rows, repaired ones included
-    _, xsi, eta = index_search.pic_from_rows(c["row"], q)
 
     u, v, w = _blend(spec, c["row"], xsi, eta, tau, zeta, c["u4"], c["v4"], c["w4"], Zw, y)
 

@@ -1,16 +1,20 @@
-"""K5, the C-grid stage cache's search and gather (ops/cgrid_repair.py).
+"""K5, the C-grid stage cache's check, search and gather (ops/cgrid_repair.py).
 
-``cgrid_repair_plain`` (the kernel's plain version, which the CPU runs) is
-held to the JAX package's ``cgrid_cached_eval`` and ``_full`` on the CPU: a
-first full eval, then one stage whose ~2900 misses at n = 4096 take three
-rounds of K = 1024, the last short and padded with lane n - 1, a dead lane
-that moved, so it walks. On the MOi-like spherical grid and on the rotated
-flat grid, where lanes outside the lookup raster (hopeless, walking their
-round's count) sit in every round. The search columns must be equal and the
-quads within ``tests/test_torch_curvilinear.py``'s C-grid tolerance. The
-device-side plan the kernel reads (``repair_plan``) must form the plain
-loop's rounds exactly. On a card, the kernel is held to the plain version
-bit for bit.
+The plain versions (which the CPU runs) are held to the JAX package's
+``cgrid_cached_eval`` and ``_full`` on the CPU: a first full eval, then one
+stage whose ~2900 misses at n = 4096 take three rounds of K = 1024, the
+last short and padded with lane n - 1, a dead lane that moved, so it walks.
+On the MOi-like spherical grid and on the rotated flat grid, where lanes
+outside the lookup raster (hopeless, walking their round's count) sit in
+every round. ``cgrid_stage_plain`` (a stage: the hit check, the repair and
+every lane's (xsi, eta)) is held to the same stage of the JAX package
+directly, and on the rotated grid in the pad and round cases: a pad lane
+that is a hit, a pad lane that is already a miss, whole rounds, no miss and
+every lane a miss. The search columns must be equal, the quads within
+``tests/test_torch_curvilinear.py``'s C-grid tolerance and (xsi, eta) within
+its ``BC_ATOL``. The work list the check kernel forms (``work_list``) and
+the device-side plan (``repair_plan``) must form the plain loop's rounds
+exactly. On a card, the kernel is held to the plain versions bit for bit.
 """
 
 import numpy as np
@@ -36,6 +40,8 @@ from parcels_tpu_torch.ops import cgrid_repair, stagecache
 N = 4096
 K = 1024
 SEARCH_COLS = ("cell", "yi", "xi", "esc", "oob")
+#: (xsi, eta) of lanes in a cell: tests/test_torch_curvilinear.py's BC_ATOL
+BC_ATOL = 2e-5
 QUAD_COLS = ("u4", "v4", "w4", "row")
 
 
@@ -216,19 +222,142 @@ def test_wrappers_run_the_plain_version_on_the_cpu(monkeypatch):
     n = y.shape[0]
     zero = torch.zeros(n, dtype=torch.int32)
     q = tis.query_xyz(y2, x2, False)
-    launches = cgrid_repair.cgrid_repair.launches
+    launches = cgrid_repair.launches
     got = cgrid_repair.cgrid_full(vf, y2, x2, q, zero, zero + 1, zero, zero, zero, zero)
     want = cgrid_repair.cgrid_full_plain(vf, y2, x2, zero, zero + 1, zero, zero, zero, zero)
-    for k in cgrid_repair.COLUMNS:
+    for k in cgrid_repair.COLUMNS + ("xsi", "eta"):
         if want[k] is not None:
             assert torch.equal(got[k], want[k]), k
     c = {k: v.clone() for k, v in want.items() if v is not None} | {"w4": None}
-    c.update(ti=zero.clone(), zi=zero.clone(), wzi=zero.clone())
-    cnt, rounds = cgrid_repair.cgrid_repair(vf, c, torch.ones(n, dtype=torch.bool), 128, y, x,
-                                            tis.query_xyz(y, x, False), zero, zero + 1, zero,
-                                            zero)
-    assert (cnt, rounds) == (n, 4)
-    assert cgrid_repair.cgrid_repair.launches == launches
+    c.update(ti=zero.clone(), zi=zero.clone(), wzi=zero.clone(), cell=zero - 1)
+    st = cgrid_repair.cgrid_stage(vf, c, y, x, tis.query_xyz(y, x, False), zero, zero + 1, zero,
+                                  zero, None, 128)
+    assert (st.cnt, st.rounds, st.length) == (n, 4, n)
+    assert torch.equal(st.work, torch.arange(n, dtype=torch.int32))
+    assert cgrid_repair.launches == launches
+
+
+# ---------------------------------------------------------------------------
+# one stage (cgrid_stage_plain) against the JAX package's cached eval
+# ---------------------------------------------------------------------------
+
+
+def _jax_stage(jvf, jpart, t, z, y2, x2, keys, spherical, invalid):
+    """The JAX package's cached eval of a stage after its first eval: its
+    miss count (its check's expressions, on the stage's time and depth
+    ``keys``, taken before the stage), then the cache columns and (xsi,
+    eta) it ends with."""
+    from parcels_tpu._core import index_search as jis
+
+    c = jvf._stage_cache
+    if invalid:
+        c["cell"] = jnp.full_like(c["cell"], -1)
+    q = jis.query_xyz(jnp.asarray(y2), jnp.asarray(x2), spherical)
+    ok, _, _ = jis.pic_from_rows(c["row"], q)
+    ti, zc, wzi = (jnp.asarray(k) for k in keys)
+    hit = ok & (ti == c["ti"]) & (zc == c["zi"]) & (wzi == c["wzi"]) & (c["cell"] >= 0)
+    miss = ~hit & jnp.isfinite(jnp.asarray(y2)) & jnp.isfinite(jnp.asarray(x2)) & jpart._mask
+    cnt = int(miss.sum())
+    jsc.cgrid_cached_eval(jvf, t, z, y2, x2, jpart)
+    c = jvf._stage_cache
+    _, xsi, eta = jis.pic_from_rows(c["row"], q)
+    return cnt, _columns(c), np.asarray(xsi), np.asarray(eta)
+
+
+def _stage_case(grid, case):
+    """Run a stage through both packages after a first eval on the same
+    lanes. ``case`` picks which lanes move and the lane mask; returns
+    (JAX (cnt, columns, xsi, eta), the port's StageResult and columns, miss)."""
+    jfs, tfs, name = _fieldsets(grid)
+    g = tfs.gridset[0]
+    t, z, y, x, y2, x2 = _stage_inputs(grid, g)
+    mask = np.ones(N, bool)
+    if case == "no miss":
+        y2, x2 = y, x
+    if case == "pad a hit":
+        y2[-1], x2[-1] = y[-1], x[-1]  # lane n - 1 stays in its cell
+    jvf = getattr(jfs.build_views(jfs.device_arrays()), name)
+    tvf = getattr(tfs.build_views(tfs.device_arrays()), name)
+    jd, td = _pdata("jax", N, len(jfs.gridset)), _pdata("torch", N, len(tfs.gridset))
+    T = torch.as_tensor
+    stagecache.cgrid_cached_eval(tvf, T(t), T(z), T(y), T(x), TParticles(td, T(mask.copy())))
+    jsc.cgrid_cached_eval(jvf, t, z, y, x, JParticles(jd, jnp.asarray(mask)))
+    c = dict(tvf._stage_cache)
+    invalid = case == "every lane"
+    if invalid:
+        c["cell"] = torch.full_like(c["cell"], -1)
+    sph = g.spec.spherical
+    q = tis.query_xyz(T(y2), T(x2), sph)
+    ti, t1i, _, _, _, zc, _, wzi, _ = stagecache.stage_brackets(tvf, T(t), T(z))
+    miss = cgrid_repair.stage_miss(c, T(y2), T(x2), q, ti, zc, wzi, T(mask))
+    if case == "whole rounds":  # the mask keeps 2 K of the misses: no pad
+        keep = torch.nonzero(miss).squeeze(1)[:2 * K]
+        mask[:] = False
+        mask[keep.numpy()] = True
+        miss = miss & T(mask)
+    keys = tuple(k.numpy() for k in (ti, zc, wzi))
+    j = _jax_stage(jvf, JParticles(jd, jnp.asarray(mask)), t, z, y2, x2, keys, sph, invalid)
+    st = cgrid_repair.cgrid_stage_plain(tvf, c, T(y2), T(x2), q, ti, t1i, zc, wzi, T(mask), K)
+    return j, st, _columns(c), miss
+
+
+STAGE_CASES = ("pad a hit", "pad a miss", "whole rounds", "no miss", "every lane")
+
+
+@pytest.mark.parametrize("grid", ["moi", "rotated"])
+def test_cgrid_stage_plain_matches_reference(monkeypatch, grid):
+    """``cgrid_stage_plain`` (the new entry's plain version) against the JAX
+    package's cached eval of the same stage: every cache column, (xsi, eta)
+    within the curvilinear search's tolerance on the lanes in a cell, and
+    the miss count and rounds (three rounds of K, the last short)."""
+    monkeypatch.setenv("PARCELS_TPU_STAGECACHE", "force")
+    (jcnt, jcols, jxsi, jeta), st, got, _ = _stage_case(grid, "pad a miss")
+    _assert_columns(got, jcols, f"{grid} stage")
+    assert (st.cnt, st.rounds) == (jcnt, -(-jcnt // K)) and st.rounds == 3
+    inside = got["cell"] >= 0
+    np.testing.assert_allclose(st.xsi.numpy()[inside], jxsi[inside], rtol=0, atol=BC_ATOL)
+    np.testing.assert_allclose(st.eta.numpy()[inside], jeta[inside], rtol=0, atol=BC_ATOL)
+
+
+@pytest.mark.parametrize("case", STAGE_CASES)
+def test_cgrid_stage_plain_rounds_and_pad(monkeypatch, case):
+    """The stage's pad and round cases on the rotated grid, against the JAX
+    package: a short last round padded with a lane that is a hit (it is
+    searched and written) or already a miss, whole rounds (no pad), no miss
+    (nothing searched) and every lane a miss (invalid keys)."""
+    monkeypatch.setenv("PARCELS_TPU_STAGECACHE", "force")
+    (jcnt, jcols, jxsi, jeta), st, got, miss = _stage_case("rotated", case)
+    _assert_columns(got, jcols, case)
+    cnt = int(miss.sum())
+    assert (st.cnt, st.rounds) == (jcnt, -(-jcnt // K)) and cnt == jcnt
+    pad = bool(cnt % K) and not bool(miss[-1])
+    assert st.length == cnt + pad
+    assert {"pad a hit": pad and cnt > K, "pad a miss": bool(cnt % K) and bool(miss[-1]),
+            "whole rounds": cnt == 2 * K, "no miss": cnt == 0,
+            "every lane": cnt == N}[case]
+    inside = got["cell"] >= 0
+    np.testing.assert_allclose(st.xsi.numpy()[inside], jxsi[inside], rtol=0, atol=BC_ATOL)
+    np.testing.assert_allclose(st.eta.numpy()[inside], jeta[inside], rtol=0, atol=BC_ATOL)
+
+
+@pytest.mark.parametrize("case", list(_plan_cases()))
+def test_work_list_forms_the_plain_rounds(case):
+    """The work list (the check kernel's plan: the misses by rank, then the
+    pad lane n - 1 of a short last round unless it is a miss) holds each
+    round's lanes in ``plain_rounds``' order, and each lane's place // K is
+    its ``repair_plan`` slot."""
+    miss, k = _plan_cases()[case]
+    work, cnt, rounds = cgrid_repair.work_list(miss, k)
+    plain = list(cgrid_repair.plain_rounds(miss, k))
+    slot, pcnt, prounds = cgrid_repair.repair_plan(miss, k)
+    assert (cnt, rounds) == (int(pcnt), int(prounds)) == (int(miss.sum()), len(plain))
+    for r, idx in enumerate(plain):
+        lanes = work[r * k:(r + 1) * k]
+        assert torch.equal(lanes, torch.unique_consecutive(idx)), r
+    assert work.shape[0] == sum(torch.unique_consecutive(i).shape[0] for i in plain)
+    places = torch.arange(work.shape[0], dtype=torch.int32)
+    assert torch.equal(slot[work.long()], torch.div(places, k, rounding_mode="floor"))
+    assert int((slot >= 0).sum()) == work.shape[0]
 
 
 def _card_stage(grid):
@@ -262,31 +391,41 @@ def _same(a, b):
 
 @pytest.mark.parametrize("grid", ["moi", "rotated"])
 def test_cgrid_repair_kernel_matches_plain_on_card(grid):
-    """K5 bit for bit against its plain version on every cache column: a
-    first full eval (NaN and infinite lanes, warm cells off the grid) and a
-    repaired stage of three rounds with a walking pad lane and invalid keys."""
+    """K5 bit for bit against its plain version on every cache column,
+    (xsi, eta) and the iteration counts: a first full eval (NaN and infinite
+    lanes, warm cells off the grid), then a stage (``cgrid_stage``) of three
+    rounds with invalid keys and a walking pad lane, whose counts and work
+    list equal the plain loop's."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     vf, (y, x, y2, x2, ti, t1i, zc, wzi, yi_g, xi_g) = _card_stage(grid)
     sph = vf.grid.spec.spherical
     args = (ti, t1i, zc, wzi)
-    full = cgrid_repair.cgrid_full(vf, y2, x2, tis.query_xyz(y2, x2, sph), *args, yi_g, xi_g)
-    want = cgrid_repair.cgrid_full_plain(vf, y2, x2, *args, yi_g, xi_g)
-    for k in cgrid_repair.COLUMNS:
+    counts = [torch.zeros(2, dtype=torch.int64, device="cuda") for _ in range(4)]
+    full = cgrid_repair.cgrid_full(vf, y2, x2, tis.query_xyz(y2, x2, sph), *args, yi_g, xi_g,
+                                   iters=counts[0])
+    want = cgrid_repair.cgrid_full_plain(vf, y2, x2, *args, yi_g, xi_g, iters=counts[1])
+    for k in cgrid_repair.COLUMNS + ("xsi", "eta"):
         if want[k] is not None:
             assert _same(full[k], want[k]), k
+    assert torch.equal(counts[0], counts[1])
     base = cgrid_repair.cgrid_full_plain(vf, y, x, *args, yi_g, xi_g)
+    del base["xsi"], base["eta"]
     base.update(ti=ti.clone(), zi=zc.clone(), wzi=wzi.clone())
     base["cell"][::13] = -1  # invalid keys
-    miss = torch.ones_like(y2, dtype=torch.bool)
-    miss[1::4] = False
-    miss[-1] = False
+    mask = torch.ones_like(y2, dtype=torch.bool)
+    mask[1::4] = False
+    mask[-1] = False  # a dead pad lane
     ck = {k: v.clone() if v is not None else None for k, v in base.items()}
     cp = {k: v.clone() if v is not None else None for k, v in base.items()}
-    cnt, rounds = cgrid_repair.cgrid_repair(vf, ck, miss, K, y2, x2,
-                                            tis.query_xyz(y2, x2, sph), *args)
-    assert (int(cnt), int(rounds)) == cgrid_repair.cgrid_repair_plain(vf, cp, miss, K, y2, x2,
-                                                                      *args)
+    q = tis.query_xyz(y2, x2, sph)
+    got = cgrid_repair.cgrid_stage(vf, ck, y2, x2, q, *args, mask, K, iters=counts[2])
+    ref = cgrid_repair.cgrid_stage_plain(vf, cp, y2, x2, q, *args, mask, K, iters=counts[3])
+    assert (int(got.cnt), int(got.rounds), int(got.length)) == (ref.cnt, ref.rounds, ref.length)
+    assert ref.rounds == 3 and ref.length == ref.cnt + 1
+    assert torch.equal(got.work[:ref.length], ref.work)
+    assert _same(got.xsi, ref.xsi) and _same(got.eta, ref.eta)
+    assert torch.equal(counts[2], counts[3])
     for k, v in cp.items():
         if v is not None:
             assert _same(ck[k], v), k
