@@ -14,7 +14,8 @@ State semantics (masked, static shapes):
   returned states and raises the reference's typed exceptions.
 
 Each loop condition (``any(busy) & ~any(halt)``, and the Repeat loop's
-``any(repeat)``) is one device-to-host read per step.
+``any(repeat)``) is one device-to-host read per step, counted in
+``profiling.host_reads`` (sites ``engine.loop`` and ``engine.repeat``).
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from parcels_tpu_torch import profiling
 from parcels_tpu_torch._core.particles_view import Particles
 from parcels_tpu_torch._core.statuscodes import MIN_ERROR_CODE, StatusCode
 
@@ -111,29 +113,31 @@ def _sort_soa(fsview, sort_field_name, pdata, z_occ=None):
     from parcels_tpu_torch._core.field import VectorFieldView
     from parcels_tpu_torch.ops.binned_sample import sort_key_for
 
-    fv = getattr(fsview, sort_field_name)
-    if isinstance(fv, VectorFieldView):
-        fv = fv.U
-    spec = fv.grid.spec
-    ydim, xdim = max(spec.ydim, 1), max(spec.xdim, 1)
-    ei = pdata["ei"][:, fv.igrid].to(torch.int32)
-    gpos = {
-        "Z": {"index": ei // (xdim * ydim)},
-        "Y": {"index": (ei // xdim) % ydim},
-        "X": {"index": ei % xdim},
-    }
-    n = pdata["state"].shape[0]
-    key = sort_key_for(spec, gpos, tuple(fv.data.shape), n, z_occ)
-    key = torch.where(pdata["_active"], key, torch.iinfo(torch.int32).max)
-    order = torch.sort(key, stable=True).indices
-    return _permute_soa(pdata, order), order
+    with profiling.span("parcels.engine.sort"):
+        fv = getattr(fsview, sort_field_name)
+        if isinstance(fv, VectorFieldView):
+            fv = fv.U
+        spec = fv.grid.spec
+        ydim, xdim = max(spec.ydim, 1), max(spec.xdim, 1)
+        ei = pdata["ei"][:, fv.igrid].to(torch.int32)
+        gpos = {
+            "Z": {"index": ei // (xdim * ydim)},
+            "Y": {"index": (ei // xdim) % ydim},
+            "X": {"index": ei % xdim},
+        }
+        n = pdata["state"].shape[0]
+        key = sort_key_for(spec, gpos, tuple(fv.data.shape), n, z_occ)
+        key = torch.where(pdata["_active"], key, torch.iinfo(torch.int32).max)
+        order = torch.sort(key, stable=True).indices
+        return _permute_soa(pdata, order), order
 
 
 def _unsort_soa(pdata, ord_col):
     """Undo every permutation applied since ``ord_col`` was the identity."""
-    inv = torch.empty_like(ord_col, dtype=torch.int64)
-    inv[ord_col.long()] = torch.arange(ord_col.shape[0], device=ord_col.device)
-    return _permute_soa(pdata, inv)
+    with profiling.span("parcels.engine.unsort"):
+        inv = torch.empty_like(ord_col, dtype=torch.int64)
+        inv[ord_col.long()] = torch.arange(ord_col.shape[0], device=ord_col.device)
+        return _permute_soa(pdata, inv)
 
 
 def run_chunk(
@@ -160,15 +164,15 @@ def run_chunk(
 
     kernel_fns = tuple(kernel_fns)
     block_size = DEFAULT_BLOCK_SIZE
-    fsview = fieldset.build_views(farrays)
-    # the stage cache's fused cell tables, built before the step loop
-    stagecache.prebuild_tables(fsview)
     n = pdata["state"].shape[0]
-
-    sort_field = _pick_sort_field(fieldset) if _sort_mode_enabled(fieldset) else None
-    sorting = sort_field is not None and _sort_worthwhile(
-        fieldset, sort_field, min(n, block_size), z_occ
-    )
+    with profiling.span("parcels.engine.setup"):
+        fsview = fieldset.build_views(farrays)
+        # the stage cache's fused cell tables, built before the step loop
+        stagecache.prebuild_tables(fsview)
+        sort_field = _pick_sort_field(fieldset) if _sort_mode_enabled(fieldset) else None
+        sorting = sort_field is not None and _sort_worthwhile(
+            fieldset, sort_field, min(n, block_size), z_occ
+        )
     # every lane carries its set position through every (re)sort and block:
     # the final unsort reads it, and each random draw is keyed by it
     # (particles_view), so neither the lane order nor the blocks change a value
@@ -233,110 +237,121 @@ def _run_block(
     sorted_hint=False, resort=None, z_occ=None,
 ):
     """The full inner time loop for one particle block."""
-    # Chunk start: active lanes are requeued for evaluation, EXCEPT error /
-    # StopAllExecution lanes, so a chunk dispatched after a halted one is a
-    # no-op and the host raises from identical state.
-    st = pdata["state"]
-    pdata["state"] = torch.where(
-        pdata["_active"] & (st < MIN_ERROR_CODE) & (st != StatusCode.StopAllExecution),
-        int(StatusCode.Evaluate),
-        st,
-    ).to(torch.int32)
-    if rk45_mode:
-        pdata["dt"] = rk45_chunk_start_dt(fsview, pdata, sign_dt)
+    with profiling.span("parcels.engine.block"):
+        # Chunk start: active lanes are requeued for evaluation, EXCEPT error /
+        # StopAllExecution lanes, so a chunk dispatched after a halted one is a
+        # no-op and the host raises from identical state.
+        st = pdata["state"]
+        pdata["state"] = torch.where(
+            pdata["_active"] & (st < MIN_ERROR_CODE) & (st != StatusCode.StopAllExecution),
+            int(StatusCode.Evaluate),
+            st,
+        ).to(torch.int32)
+        if rk45_mode:
+            pdata["dt"] = rk45_chunk_start_dt(fsview, pdata, sign_dt)
 
-    it = 0
-    while True:
-        busy, halt = compute_loop_masks(pdata, endtime, sign_dt)
-        if not bool(busy.any() & ~halt.any()):
-            break
-        pdata = engine_step(
-            fsview, pdata, endtime, dt0, kernel_fns, sign_dt, rk45_mode, sorted_hint, z_occ
-        )
-        it += 1
-        if resort is not None and it % RESORT_EVERY == 0:
-            pdata = resort(pdata)
-    return pdata
+        it = 0
+        while True:
+            busy, halt = compute_loop_masks(pdata, endtime, sign_dt)
+            with profiling.sync("engine.loop"):
+                go = bool(busy.any() & ~halt.any())
+            if not go:
+                break
+            pdata = engine_step(
+                fsview, pdata, endtime, dt0, kernel_fns, sign_dt, rk45_mode, sorted_hint, z_occ
+            )
+            it += 1
+            if resort is not None and it % RESORT_EVERY == 0:
+                pdata = resort(pdata)
+        return pdata
 
 
 def engine_step(
     fsview, pd, endtime, dt0, kernel_fns, sign_dt, rk45_mode, sorted_hint=False, z_occ=None,
 ):
     """One iteration of the inner loop: kernel chain + state machine update."""
-    pd = dict(pd)
-    act = pd["_active"]
-    st = pd["state"]
-    tte = sign_dt * (endtime - pd["t"])
-    eval_mask = act & ((st == StatusCode.Success) | (st == StatusCode.Evaluate)) & (tte >= 0)
+    profiling.block_steps += 1
+    with profiling.span("parcels.engine.step"):
+        pd = dict(pd)
+        act = pd["_active"]
+        st = pd["state"]
+        tte = sign_dt * (endtime - pd["t"])
+        eval_mask = act & ((st == StatusCode.Success) | (st == StatusCode.Evaluate)) & (tte >= 0)
 
-    # clamp dt so particles land exactly on endtime (reference kernel.py:201-205)
-    if sign_dt == 1:
-        pd["dt"] = torch.clamp_min(torch.minimum(pd["dt"], tte), 0.0).to(pd["dt"].dtype)
-    else:
-        pd["dt"] = torch.clamp_max(torch.maximum(pd["dt"], -tte), 0.0).to(pd["dt"].dtype)
+        # clamp dt so particles land exactly on endtime (reference kernel.py:201-205)
+        if sign_dt == 1:
+            pd["dt"] = torch.clamp_min(torch.minimum(pd["dt"], tte), 0.0).to(pd["dt"].dtype)
+        else:
+            pd["dt"] = torch.clamp_max(torch.maximum(pd["dt"], -tte), 0.0).to(pd["dt"].dtype)
 
-    # kernel chain; each kernel is followed by masked Repeat resubmission
-    # (RK45 adaptive dt, reference kernel.py:208-218). The C-grid stage cache
-    # never crosses a kernel call; its final entries persist in the SoA.
-    from parcels_tpu_torch.ops import stagecache
+        # kernel chain; each kernel is followed by masked Repeat resubmission
+        # (RK45 adaptive dt, reference kernel.py:208-218). The C-grid stage cache
+        # never crosses a kernel call; its final entries persist in the SoA.
+        from parcels_tpu_torch.ops import stagecache
 
-    def call(view):
-        stagecache.reset(fsview)
-        f(view, fsview)
-        stagecache.flush(fsview, pd)
-        stagecache.reset(fsview)
+        def call(view):
+            stagecache.reset(fsview)
+            f(view, fsview)
+            stagecache.flush(fsview, pd)
+            stagecache.reset(fsview)
 
-    for fi, f in enumerate(kernel_fns):
-        call(Particles(pd, eval_mask, sorted_hint, z_occ, stream=(fi, 0)))
-        rounds = 0
-        while True:
-            repeat = pd["_active"] & (pd["state"] == StatusCode.Repeat)
-            if not bool(repeat.any()):
-                break
-            rounds += 1
-            call(Particles(pd, repeat, sorted_hint, z_occ, stream=(fi, rounds)))
+        for fi, f in enumerate(kernel_fns):
+            name = getattr(f, "__name__", "kernel")
+            with profiling.span("parcels.kernel.", name):
+                call(Particles(pd, eval_mask, sorted_hint, z_occ, stream=(fi, 0)))
+            rounds = 0
+            while True:
+                repeat = pd["_active"] & (pd["state"] == StatusCode.Repeat)
+                with profiling.sync("engine.repeat"):
+                    again = bool(repeat.any())
+                if not again:
+                    break
+                rounds += 1
+                with profiling.span("parcels.kernel.", name):
+                    call(Particles(pd, repeat, sorted_hint, z_occ, stream=(fi, rounds)))
 
-    # position/time update for lanes still in a normal state
-    # (reference kernel.py:108-120, 222-224)
-    st = pd["state"]
-    upd = eval_mask & ((st == StatusCode.Evaluate) | (st == StatusCode.Success))
-    t_old = pd["t"]
-    uview = Particles(pd, upd)
-    uview.x = pd["x"] + pd["dx"]
-    uview.y = pd["y"] + pd["dy"]
-    uview.z = pd["z"] + pd["dz"]
-    # compensated (Kahan) f32 clock: _tc carries the low bits lost by t += dt;
-    # the clamped landing step snaps t to endtime exactly and clears the carry
-    landing = pd["dt"] == (endtime - pd["t"])
-    y_inc = pd["dt"] + pd["_tc"]
-    t_new = pd["t"] + y_inc
-    c_new = y_inc - (t_new - pd["t"])
-    t_new = torch.where(landing, endtime.expand(t_new.shape), t_new)
-    c_new = torch.where(landing, torch.zeros_like(c_new), c_new)
-    uview.t = t_new
-    uview._tc = c_new
-    uview.dx = torch.zeros_like(pd["dx"])
-    uview.dy = torch.zeros_like(pd["dy"])
-    uview.dz = torch.zeros_like(pd["dz"])
-    if rk45_mode:
-        # dt may have grown in the RK45 kernel; floor at RK45_min_dt so an
-        # endtime landing's clamped dt never carries into the next chunk
-        min_dt = abs(float(fsview.RK45_min_dt))
-        nd = pd["next_dt"]
-        uview.dt = torch.where(nd.abs() < min_dt, min_dt * sign_dt, nd)
-    else:
-        # revert to the nominal dt (reference kernel.py:227-228)
-        pd["dt"] = dt0.to(pd["dt"].dtype).expand(pd["dt"].shape).clone()
+        with profiling.span("parcels.engine.update"):
+            # position/time update for lanes still in a normal state
+            # (reference kernel.py:108-120, 222-224)
+            st = pd["state"]
+            upd = eval_mask & ((st == StatusCode.Evaluate) | (st == StatusCode.Success))
+            t_old = pd["t"]
+            uview = Particles(pd, upd)
+            uview.x = pd["x"] + pd["dx"]
+            uview.y = pd["y"] + pd["dy"]
+            uview.z = pd["z"] + pd["dz"]
+            # compensated (Kahan) f32 clock: _tc carries the low bits lost by t += dt;
+            # the clamped landing step snaps t to endtime exactly and clears the carry
+            landing = pd["dt"] == (endtime - pd["t"])
+            y_inc = pd["dt"] + pd["_tc"]
+            t_new = pd["t"] + y_inc
+            c_new = y_inc - (t_new - pd["t"])
+            t_new = torch.where(landing, endtime.expand(t_new.shape), t_new)
+            c_new = torch.where(landing, torch.zeros_like(c_new), c_new)
+            uview.t = t_new
+            uview._tc = c_new
+            uview.dx = torch.zeros_like(pd["dx"])
+            uview.dy = torch.zeros_like(pd["dy"])
+            uview.dz = torch.zeros_like(pd["dz"])
+            if rk45_mode:
+                # dt may have grown in the RK45 kernel; floor at RK45_min_dt so an
+                # endtime landing's clamped dt never carries into the next chunk
+                min_dt = abs(float(fsview.RK45_min_dt))
+                nd = pd["next_dt"]
+                uview.dt = torch.where(nd.abs() < min_dt, min_dt * sign_dt, nd)
+            else:
+                # revert to the nominal dt (reference kernel.py:227-228)
+                pd["dt"] = dt0.to(pd["dt"].dtype).expand(pd["dt"].shape).clone()
 
-    # mark lanes that reached endtime (reference kernel.py:231-232); the
-    # "stuck" clause guards against f32 time underflow (t + dt == t)
-    st = pd["state"]
-    stuck = upd & (pd["t"] == t_old) & (sign_dt * (endtime - pd["t"]) > 0)
-    reached = (pd["t"] == endtime) | stuck
-    pd["state"] = torch.where(
-        (st == StatusCode.Evaluate) & reached, int(StatusCode.EndofLoop), st
-    ).to(torch.int32)
+            # mark lanes that reached endtime (reference kernel.py:231-232); the
+            # "stuck" clause guards against f32 time underflow (t + dt == t)
+            st = pd["state"]
+            stuck = upd & (pd["t"] == t_old) & (sign_dt * (endtime - pd["t"]) > 0)
+            reached = (pd["t"] == endtime) | stuck
+            pd["state"] = torch.where(
+                (st == StatusCode.Evaluate) & reached, int(StatusCode.EndofLoop), st
+            ).to(torch.int32)
 
-    # deletion clears validity instead of removing rows (reference kernel.py:235)
-    pd["_active"] = pd["_active"] & (pd["state"] != StatusCode.Delete)
-    return pd
+            # deletion clears validity instead of removing rows (reference kernel.py:235)
+            pd["_active"] = pd["_active"] & (pd["state"] != StatusCode.Delete)
+        return pd

@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from parcels_tpu_torch import profiling
 from parcels_tpu_torch._core import index_search
 from parcels_tpu_torch._core.basegrid import BaseGrid
 from parcels_tpu_torch._core.grid import grid_search
@@ -226,9 +227,11 @@ class VectorFieldView:
         from parcels_tpu_torch.ops import stagecache, uxcache
 
         if stagecache.enabled(self):
-            return stagecache.cgrid_cached_eval(self, t, z, y, x, particles)
+            with profiling.span("parcels.sample.cgrid"):
+                return stagecache.cgrid_cached_eval(self, t, z, y, x, particles)
         if uxcache.enabled(self):
-            return uxcache.ux_cached_eval(self, t, z, y, x, particles)
+            with profiling.span("parcels.sample.ux"):
+                return uxcache.ux_cached_eval(self, t, z, y, x, particles)
         ppos, gpos = _get_positions(self.U, t, z, y, x, particles)
         u, v, w = self.interp_method.interp(ppos, gpos, self)
         if particles is not None:

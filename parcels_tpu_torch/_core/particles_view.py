@@ -34,6 +34,8 @@ import operator
 import numpy as np
 import torch
 
+from parcels_tpu_torch import profiling
+
 __all__ = ["Particles", "split_key"]
 
 
@@ -153,16 +155,18 @@ class Particles:
         """Per-particle standard normals from the engine RNG (reference
         kernels/_advectiondiffusion.py:37 draws np.random.normal): Box-Muller
         on two 24-bit uniforms."""
-        a, b = self._words(2)
-        u1 = ((a >> 8) + 1).to(torch.float32) * 2.0**-24  # (0, 1]
-        u2 = (b >> 8).to(torch.float32) * 2.0**-24
-        z = torch.sqrt(-2.0 * torch.log(u1)) * torch.cos((2.0 * math.pi) * u2)
-        return z.to(dtype)
+        with profiling.span("parcels.rng.draw"):
+            a, b = self._words(2)
+            u1 = ((a >> 8) + 1).to(torch.float32) * 2.0**-24  # (0, 1]
+            u2 = (b >> 8).to(torch.float32) * 2.0**-24
+            z = torch.sqrt(-2.0 * torch.log(u1)) * torch.cos((2.0 * math.pi) * u2)
+            return z.to(dtype)
 
     def random_uniform(self, dtype=torch.float32):
         """Per-particle uniform [0, 1) draws (24 bits) from the engine RNG."""
-        (a,) = self._words(1)
-        return ((a >> 8).to(torch.float32) * 2.0**-24).to(dtype)
+        with profiling.span("parcels.rng.draw"):
+            (a,) = self._words(1)
+            return ((a >> 8).to(torch.float32) * 2.0**-24).to(dtype)
 
     def __len__(self):
         return self._data["state"].shape[0]

@@ -31,6 +31,7 @@ import warnings
 import numpy as np
 import torch
 
+from parcels_tpu_torch import profiling
 from parcels_tpu_torch._core.engine import DEFAULT_BLOCK_SIZE, _sort_mode_enabled, run_chunk
 from parcels_tpu_torch._core.particle import Particle, create_particle_data
 from parcels_tpu_torch._core.statuscodes import (
@@ -117,6 +118,13 @@ def state_from_numpy(field_arrays: dict, pdata: dict, device):
 
 def _host(v: torch.Tensor) -> np.ndarray:
     return v.detach().cpu().numpy()
+
+
+def _clock_sum(d: dict) -> torch.Tensor:
+    """The real (not padding) lanes' clocks ``t + _tc`` summed in float64,
+    a 0-d tensor on the lanes' device (nothing is read back)."""
+    clock = d["t"].double() + d["_tc"].double()
+    return torch.where(d["particle_id"] >= 0, clock, 0.0).sum()
 
 
 class ParticleSet:
@@ -472,11 +480,13 @@ class ParticleSet:
         opts = options if options is not None else EngineOptions()
         if not isinstance(opts, EngineOptions):
             raise TypeError(f"options must be an EngineOptions. Got {type(opts)}")
-        with opts.applied():
+        with opts.applied(), profiling.span("parcels.execute"):
             return self._execute_impl(kernels, dt, endtime, runtime, output_file, verbose_progress)
 
     def _execute_impl(self, kernels, dt, endtime, runtime, output_file, verbose_progress):
-        if len(self) == 0:
+        with profiling.sync("execute.live"):
+            empty = len(self) == 0
+        if empty:
             return
         if isinstance(kernels, types.FunctionType):
             kernels = [kernels]
@@ -491,8 +501,10 @@ class ParticleSet:
         dt, sign_dt = _convert_dt_to_float(dt)
         runtime = _convert_runtime_to_float(runtime)
         # time plumbing sees only ACTIVE lanes (padding lanes carry t=0)
-        active = _host(self._data["_active"])
-        tarr = _host(self._data["t"])
+        with profiling.sync("execute.active"):
+            active = _host(self._data["_active"])
+        with profiling.sync("execute.clock"):
+            tarr = _host(self._data["t"])
         release_t = tarr[active]
         start_time, end_time = _get_simulation_start_and_end_times(
             self.fieldset.time_interval, release_t, runtime, endtime, sign_dt
@@ -504,6 +516,8 @@ class ParticleSet:
             tarr = tarr.copy()
             tarr[np.isnan(tarr)] = start_time
             d["t"] = _to_device(tarr, self.device)
+        # each lane's steps are counted from its own clock (last_run_stats)
+        clock0 = _clock_sum(d)
 
         outputdt = output_file.outputdt if output_file else None
         _warn_outputdt_release_desync(outputdt, start_time, release_t)
@@ -530,13 +544,17 @@ class ParticleSet:
         if domain is None:
             if pmesh is None:
                 self._pad_capacity(DEFAULT_BLOCK_SIZE)
-            if _sort_mode_enabled(self.fieldset) and not bool(self._data["ei"].any()):
-                # sort keys come from the ei cache; seed it so the FIRST chunk
-                # bins correctly instead of overflowing to the gather fix-up
-                self.populate_indices()
+            if _sort_mode_enabled(self.fieldset):
+                with profiling.sync("execute.indices"):
+                    seeded = bool(self._data["ei"].any())
+                if not seeded:
+                    # sort keys come from the ei cache; seed it so the FIRST chunk
+                    # bins correctly instead of overflowing to the gather fix-up
+                    self.populate_indices()
         windowed = self.fieldset._time_window is not None
         f32 = dict(dtype=torch.float32, device=self.device)
-        dt_dev = torch.tensor(dt, **f32)
+        with profiling.sync("execute.dt"):  # an upload from pageable memory
+            dt_dev = torch.tensor(dt, **f32)
         if domain is not None:
             from parcels_tpu_torch.parallel import build_domain_executor, build_tile_executor
             from parcels_tpu_torch.parallel.tiles import XYTileDomain
@@ -580,7 +598,8 @@ class ParticleSet:
 
         if output_file is not None:
             output_file.set_metadata(self.fieldset, self._pclass, kernels)
-            output_file.write_snapshot(dict(dev), start_time)
+            with profiling.span("parcels.execute.output"):
+                output_file.write_snapshot(dict(dev), start_time)
             next_output = start_time + outputdt * sign_dt
         else:
             next_output = None
@@ -613,110 +632,118 @@ class ParticleSet:
             # takes the same decisions and chunk lengths.
             def drain(pending):
                 nonlocal est_per_step, cur_chunk, t_mark
-                flags, steps_done, idx = pending
-                now = _time.perf_counter()
-                w = max(now - t_mark, 1e-6) / steps_done
-                if sharded is not None:
-                    us = torch.tensor([int(w * 1e6)], device=flags.device)
-                    host = _comm.allreduce_max(torch.cat([flags.to(torch.int64), us]))
-                    w = float(host[-1]) / 1e6
-                    err_any, stop_any, migof, haloof = (int(v) for v in host[:4].tolist())
-                else:
-                    err_any, stop_any, migof, haloof = (int(v) for v in flags.tolist())
-                if adaptive and idx > 0:
-                    est_per_step = w if est_per_step is None else 0.5 * est_per_step + 0.5 * w
-                    cur_chunk = max(1, min(max_chunk, int(target_s / est_per_step)))
-                t_mark = now
-                # domain diagnostics outrank per-particle states: a halo or
-                # buffer breach invalidates the samples that made those states
-                if migof:
-                    raise RuntimeError(
-                        "Particle migration buffer overflow: increase "
-                        "YBandDomain(headroom=..., migration_capacity=...) or halo."
-                    )
-                if haloof and (not domain.curvilinear or self._curvilinear_halo_breach(
-                        dev, kernels, pending_span[0], pending_span[1], dt, sign_dt,
-                        rk45_mode, windowed)):
-                    raise RuntimeError(
-                        "Halo violation: a particle moved beyond its band's halo-extended "
-                        "slab in a single step, so its field samples were clamped at the "
-                        "slab edge (rectilinear bands) or its point-in-cell walk failed "
-                        "(curvilinear bands). Increase YBandDomain(halo=...) or reduce dt "
-                        "(halo must cover the max per-step displacement in cells)."
-                    )
-                if err_any:
-                    self._raise_errors(dev, sharded is not None)
-                return bool(stop_any)
+                with profiling.span("parcels.execute.drain"):
+                    flags, steps_done, idx = pending
+                    now = _time.perf_counter()
+                    w = max(now - t_mark, 1e-6) / steps_done
+                    with profiling.sync("execute.drain"):
+                        if sharded is not None:
+                            us = torch.tensor([int(w * 1e6)], device=flags.device)
+                            host = _comm.allreduce_max(torch.cat([flags.to(torch.int64), us]))
+                            w = float(host[-1]) / 1e6
+                            flags = host[:4]
+                        err_any, stop_any, migof, haloof = (int(v) for v in flags.tolist())
+                    if adaptive and idx > 0:
+                        est_per_step = w if est_per_step is None else 0.5 * est_per_step + 0.5 * w
+                        cur_chunk = max(1, min(max_chunk, int(target_s / est_per_step)))
+                    t_mark = now
+                    # domain diagnostics outrank per-particle states: a halo or
+                    # buffer breach invalidates the samples that made those states
+                    if migof:
+                        raise RuntimeError(
+                            "Particle migration buffer overflow: increase "
+                            "YBandDomain(headroom=..., migration_capacity=...) or halo."
+                        )
+                    if haloof and (not domain.curvilinear or self._curvilinear_halo_breach(
+                            dev, kernels, pending_span[0], pending_span[1], dt, sign_dt,
+                            rk45_mode, windowed)):
+                        raise RuntimeError(
+                            "Halo violation: a particle moved beyond its band's halo-extended "
+                            "slab in a single step, so its field samples were clamped at the "
+                            "slab edge (rectilinear bands) or its point-in-cell walk failed "
+                            "(curvilinear bands). Increase YBandDomain(halo=...) or reduce dt "
+                            "(halo must cover the max per-step displacement in cells)."
+                        )
+                    if err_any:
+                        self._raise_errors(dev, sharded is not None)
+                    return bool(stop_any)
 
             pending = None
             pending_span = (start_time, start_time)
             while sign_dt * (time - end_time) < 0:
-                f = min if sign_dt > 0 else max
-                next_time = f(next_output, end_time) if next_output is not None else end_time
-                if cur_chunk > 0 and dt:
-                    next_time = f(next_time, time + sign_dt * cur_chunk * abs(dt))
-                if windowed:
-                    next_time = f(next_time, self.fieldset.max_window_endtime(time, sign_dt))
-                    key = self.fieldset._window_offsets(time, next_time)
-                    if key != window_key:
-                        # a new window: the persistent caches hold face values
-                        # at the previous window's time indices (the JAX package
-                        # invalidates at every windowed chunk; the caches are
-                        # exact, so a hit inside one window equals a repair)
-                        dev = stagecache.invalidate_soa_cache(dev)
-                        # drop the old window before the new one lands: the
-                        # chunk reads one window while its successor is staged
-                        window_key, farrays = key, None
-                        if pending is not None:
-                            # rollover drains the pipeline, so at most two
-                            # windows' slabs are live at once
-                            stop0 = drain(pending)
-                            pending = None
-                            if stop0:
-                                break
-                    farrays = window(time, next_time)
-                if windowed and sign_dt * (next_time - end_time) < 0:
-                    # stage the next window while this chunk runs. The chunk's
-                    # eager steps occupy this thread until it returns, so the
-                    # read is issued before it (the JAX package issues it after
-                    # its asynchronous dispatch). Forward chunks anchor at
-                    # next_time, backward ones at an estimate (a miss costs one
-                    # synchronous load)
-                    anchor = next_time if sign_dt > 0 else next_time + (next_time - time)
-                    (domain or self.fieldset).prefetch_window(anchor)
-                dev = step(farrays, dev, torch.tensor(np.float32(next_time), dtype=torch.float32,
-                                                      device=run_device))
-                act, st = dev["_active"], dev["state"]
-                zero = torch.zeros((), dtype=torch.bool, device=run_device)
-                flags = torch.stack([
-                    (act & (st >= MIN_ERROR_CODE)).any(),
-                    (act & (st == StatusCode.StopAllExecution)).any(),
-                    dev["_migof"] > 0 if "_migof" in dev else zero,
-                    dev["_haloof"] > 0 if "_haloof" in dev else zero,
-                ])
-                stop_prev = False
-                if pending is not None:
-                    stop_prev = drain(pending)
-                steps_done = max(1, round(abs(float(next_time) - float(time)) / abs(dt))) if dt else 1
-                pending = (flags, steps_done, nchunks)
-                pending_span = (time, next_time)
+                with profiling.span("parcels.execute.chunk"):
+                    f = min if sign_dt > 0 else max
+                    next_time = f(next_output, end_time) if next_output is not None else end_time
+                    if cur_chunk > 0 and dt:
+                        next_time = f(next_time, time + sign_dt * cur_chunk * abs(dt))
+                    if windowed:
+                        next_time = f(next_time, self.fieldset.max_window_endtime(time, sign_dt))
+                        key = self.fieldset._window_offsets(time, next_time)
+                        if key != window_key:
+                            # a new window: the persistent caches hold face values
+                            # at the previous window's time indices (the JAX package
+                            # invalidates at every windowed chunk; the caches are
+                            # exact, so a hit inside one window equals a repair)
+                            dev = stagecache.invalidate_soa_cache(dev)
+                            # drop the old window before the new one lands: the
+                            # chunk reads one window while its successor is staged
+                            window_key, farrays = key, None
+                            if pending is not None:
+                                # rollover drains the pipeline, so at most two
+                                # windows' slabs are live at once
+                                stop0 = drain(pending)
+                                pending = None
+                                if stop0:
+                                    break
+                        with profiling.span("parcels.window.load"):
+                            farrays = window(time, next_time)
+                    if windowed and sign_dt * (next_time - end_time) < 0:
+                        # stage the next window while this chunk runs. The chunk's
+                        # eager steps occupy this thread until it returns, so the
+                        # read is issued before it (the JAX package issues it after
+                        # its asynchronous dispatch). Forward chunks anchor at
+                        # next_time, backward ones at an estimate (a miss costs one
+                        # synchronous load)
+                        anchor = next_time if sign_dt > 0 else next_time + (next_time - time)
+                        with profiling.span("parcels.window.prefetch"):
+                            (domain or self.fieldset).prefetch_window(anchor)
+                    with profiling.sync("execute.endtime"):  # an upload from pageable memory
+                        endtime_dev = torch.tensor(np.float32(next_time), dtype=torch.float32,
+                                                   device=run_device)
+                    dev = step(farrays, dev, endtime_dev)
+                    act, st = dev["_active"], dev["state"]
+                    zero = torch.zeros((), dtype=torch.bool, device=run_device)
+                    flags = torch.stack([
+                        (act & (st >= MIN_ERROR_CODE)).any(),
+                        (act & (st == StatusCode.StopAllExecution)).any(),
+                        dev["_migof"] > 0 if "_migof" in dev else zero,
+                        dev["_haloof"] > 0 if "_haloof" in dev else zero,
+                    ])
+                    stop_prev = False
+                    if pending is not None:
+                        stop_prev = drain(pending)
+                    steps_done = (max(1, round(abs(float(next_time) - float(time)) / abs(dt)))
+                                  if dt else 1)
+                    pending = (flags, steps_done, nchunks)
+                    pending_span = (time, next_time)
 
-                if sharded is not None or (
-                        next_output is not None and abs(next_time - next_output) < 1e-3):
-                    # a snapshot must reflect a chunk already checked for errors
-                    stop_prev = drain(pending) or stop_prev
-                    pending = None
-                if next_output is not None and abs(next_time - next_output) < 1e-3:
-                    if output_file:
-                        output_file.write_snapshot(dict(dev), next_output)
-                    if np.isfinite(outputdt):
-                        next_output += outputdt * sign_dt
-                if pbar is not None:
-                    pbar.update(sign_dt * (next_time - time))
-                time = next_time
-                nchunks += 1
-                if stop_prev:
-                    break
+                    if sharded is not None or (
+                            next_output is not None and abs(next_time - next_output) < 1e-3):
+                        # a snapshot must reflect a chunk already checked for errors
+                        stop_prev = drain(pending) or stop_prev
+                        pending = None
+                    if next_output is not None and abs(next_time - next_output) < 1e-3:
+                        if output_file:
+                            with profiling.span("parcels.execute.output"):
+                                output_file.write_snapshot(dict(dev), next_output)
+                        if np.isfinite(outputdt):
+                            next_output += outputdt * sign_dt
+                    if pbar is not None:
+                        pbar.update(sign_dt * (next_time - time))
+                    time = next_time
+                    nchunks += 1
+                    if stop_prev:
+                        break
             if pending is not None:
                 drain(pending)
         finally:
@@ -754,12 +781,17 @@ class ParticleSet:
                                  for k, v in comm.items()}
                 # the final gather of the lanes to every rank, on this rank
                 stats["gather_s"] = round(gather_s, 4)
-            nsteps = abs(time - start_time) / abs(dt) if dt else 0.0
+            # every real lane's steps from its own clock: deleted and halted
+            # lanes count the steps they took
+            with profiling.sync("execute.stats"):
+                live, advanced = torch.stack([self._data["_active"].sum().double(),
+                                              _clock_sum(self._data) - clock0]).tolist()
+            steps = sign_dt * advanced / abs(dt) if dt else 0.0
             self.last_run_stats = {
                 "wall_s": round(wall, 4),
                 "chunks": nchunks,
-                "particles": len(self),
-                "particle_steps_per_s": round(len(self) * nsteps / wall, 1) if wall > 0 else 0.0,
+                "particles": int(live),
+                "particle_steps_per_s": round(steps / wall, 1) if wall > 0 else 0.0,
                 "z_occupancy_hint": z_occ,
                 "chunk_steps_final": cur_chunk,
                 "est_seconds_per_step": round(est_per_step, 6) if est_per_step is not None else None,
@@ -885,8 +917,10 @@ class ParticleSet:
         depth = max((np.asarray(g.depth) for g in self.fieldset.gridset),
                     key=lambda d: d.size, default=None)
         if depth is not None and depth.ndim == 1 and depth.size > 2 and bool(np.all(np.diff(depth) > 0)):
-            z = _host(self._data["z"])
-            act = _host(self._data["_active"])
+            with profiling.sync("execute.occupancy"):
+                z = _host(self._data["z"])
+            with profiling.sync("execute.occupancy"):
+                act = _host(self._data["_active"])
             z = z[act] if act.any() else z
             zi = np.clip(np.searchsorted(depth, z, side="right") - 1, 0, depth.size - 2)
             frac = np.unique(zi).size / max(depth.size - 1, 1)

@@ -19,6 +19,7 @@ import math
 
 import torch
 
+from parcels_tpu_torch import profiling
 from parcels_tpu_torch.interpolators._base import ScalarInterpolator, VectorInterpolator
 
 __all__ = [
@@ -100,10 +101,13 @@ def _linear_sample(data, gpos, blend=(True, True, True, True)):
 
     shape4 = tuple(data.shape)
     if fits_fast_path(shape4):
-        return fold_sample(data, *positions_from_gpos(gpos, shape4))
+        with profiling.span("parcels.sample.k1"):
+            return fold_sample(data, *positions_from_gpos(gpos, shape4))
     if binned_enabled(shape4, gpos):
-        return binned_linear_sample(data, gpos)
-    return gather_sample(data, gpos, blend)
+        with profiling.span("parcels.sample.k2"):
+            return binned_linear_sample(data, gpos)
+    with profiling.span("parcels.sample.gather"):
+        return gather_sample(data, gpos, blend)
 
 
 class XLinear(ScalarInterpolator):

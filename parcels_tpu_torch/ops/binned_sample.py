@@ -42,6 +42,8 @@ import os
 
 import torch
 
+from parcels_tpu_torch import profiling
+
 __all__ = [
     "CHUNK",
     "LANE",
@@ -328,6 +330,10 @@ def _build_plan(shape4, gpos):
         live = torch.ones(G, dtype=i32, device=zb.device)
 
     overflow = overflow.reshape(npad)[:n]
+    with profiling.sync("k2.plan"):
+        count = int(overflow.sum())
+    profiling.k2_lanes += n
+    profiling.k2_overflow_lanes += count
     return {
         "G": G,
         "NS": NS,
@@ -345,7 +351,7 @@ def _build_plan(shape4, gpos):
         "bcoord": tuple(gpos[ax]["bcoord"].to(torch.float32).contiguous() for ax in "TZYX"),
         "overflow": overflow,
         # one host read per plan: the fix-up tier is chosen on the host
-        "count": int(overflow.sum()),
+        "count": count,
     }
 
 
@@ -354,7 +360,8 @@ def _get_plan(shape4, gpos):
     component (U, V, W) sampled with it."""
     plans = gpos.setdefault("_k2plans", {})
     if shape4 not in plans:
-        plans[shape4] = _build_plan(shape4, gpos)
+        with profiling.span("parcels.k2.plan"):
+            plans[shape4] = _build_plan(shape4, gpos)
     return plans[shape4]
 
 
@@ -682,19 +689,21 @@ def binned_linear_sample(data, gpos):
     if n == 0:
         return torch.empty(0, dtype=torch.float32, device=data.device)
     plan = _get_plan(shape4, gpos)
-    vals = slab_sample(data, plan)
+    with profiling.span("parcels.k2.kernel"):
+        vals = slab_sample(data, plan)
 
     # tiered capacity: the steady engine-sorted state has near-zero overflow
     # (sub-block z/bin transition tails only), so the common tier is small
     count = plan["count"]
     k_small = min(n, max(4096, n // _K_SMALL_DIV))
     k_big = min(n, max(4096, n // _K_BIG_DIV))
-    if count > k_big:
-        return _gather16(data, _gather_lanes(gpos))
-    K = k_small if count <= k_small else k_big
-    # stream compaction: the j-th overflow lane is the first position where
-    # the running count reaches j+1 (slots past the count land on lane n-1)
-    cum = torch.cumsum(plan["overflow"].to(torch.int64), 0)
-    idx = torch.searchsorted(cum, torch.arange(1, K + 1, device=data.device))
-    idx = torch.clamp(idx, max=n - 1)
-    return vals.index_put((idx,), _gather16(data, _gather_lanes(gpos, idx)))
+    with profiling.span("parcels.k2.fixup"):
+        if count > k_big:
+            return _gather16(data, _gather_lanes(gpos))
+        K = k_small if count <= k_small else k_big
+        # stream compaction: the j-th overflow lane is the first position where
+        # the running count reaches j+1 (slots past the count land on lane n-1)
+        cum = torch.cumsum(plan["overflow"].to(torch.int64), 0)
+        idx = torch.searchsorted(cum, torch.arange(1, K + 1, device=data.device))
+        idx = torch.clamp(idx, max=n - 1)
+        return vals.index_put((idx,), _gather16(data, _gather_lanes(gpos, idx)))

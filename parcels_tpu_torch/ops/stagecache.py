@@ -34,6 +34,7 @@ import os
 
 import torch
 
+from parcels_tpu_torch import profiling
 from parcels_tpu_torch._core import index_search
 from parcels_tpu_torch._core.statuscodes import StatusCode
 
@@ -317,11 +318,13 @@ def flush(fsview, pd) -> None:
             continue
         if SC_KEY not in pd:
             continue
-        pd[SC_KEY] = torch.stack([c["cell"], c["ti"], c["zi"], c["wzi"]], dim=1).to(torch.int32)
-        pd["_sc_u4"] = c["u4"]
-        pd["_sc_v4"] = c["v4"]
-        if c["w4"] is not None and SC_W in pd:
-            pd[SC_W] = c["w4"]
+        with profiling.span("parcels.cgrid.flush"):
+            pd[SC_KEY] = torch.stack([c["cell"], c["ti"], c["zi"], c["wzi"]],
+                                     dim=1).to(torch.int32)
+            pd["_sc_u4"] = c["u4"]
+            pd["_sc_v4"] = c["v4"]
+            if c["w4"] is not None and SC_W in pd:
+                pd[SC_W] = c["w4"]
 
 
 # ---------------------------------------------------------------------------
@@ -443,85 +446,87 @@ def cgrid_cached_eval(vf, t, z, y, x, particles):
     from parcels_tpu_torch._core.field import _escalate
     from parcels_tpu_torch.ops import cgrid_repair
 
-    grid = vf.grid
-    spec = grid.spec
-    i32 = dict(dtype=torch.int32, device=y.device)
-    ti, t1i, tau, t_oob, zi_raw, zc, zeta, wzi, Zw = stage_brackets(vf, t, z)
+    with profiling.span("parcels.cgrid.stage"):
+        grid = vf.grid
+        spec = grid.spec
+        i32 = dict(dtype=torch.int32, device=y.device)
+        ti, t1i, tau, t_oob, zi_raw, zc, zeta, wzi, Zw = stage_brackets(vf, t, z)
 
-    # escalations independent of the X/Y search (field._update_state_position)
-    esc_zt = torch.maximum(
-        torch.where(zi_raw == index_search.RIGHT_OUT_OF_BOUNDS, int(StatusCode.ErrorOutOfBounds), 0),
-        torch.where(zi_raw == index_search.LEFT_OUT_OF_BOUNDS,
-                    int(StatusCode.ErrorThroughSurface), 0),
-    )
-    if t_oob is not None:
+        # escalations independent of the X/Y search (field._update_state_position)
         esc_zt = torch.maximum(
-            esc_zt, torch.where(t_oob, int(StatusCode.ErrorOutsideTimeInterval), 0)
+            torch.where(zi_raw == index_search.RIGHT_OUT_OF_BOUNDS,
+                        int(StatusCode.ErrorOutOfBounds), 0),
+            torch.where(zi_raw == index_search.LEFT_OUT_OF_BOUNDS,
+                        int(StatusCode.ErrorThroughSurface), 0),
         )
-    esc_zt = esc_zt.to(torch.int32)
-    z_oob = zi_raw < 0
+        if t_oob is not None:
+            esc_zt = torch.maximum(
+                esc_zt, torch.where(t_oob, int(StatusCode.ErrorOutsideTimeInterval), 0)
+            )
+        esc_zt = esc_zt.to(torch.int32)
+        z_oob = zi_raw < 0
 
-    c = vf._stage_cache
-    n = y.shape[0]
-    if c is None and particles is not None and SC_KEY in particles._data and vf._sc_owner:
-        # cross-step persistence: stage 1 starts from the last step's cache
-        c = _load_soa_cache(particles, vf)
+        c = vf._stage_cache
+        n = y.shape[0]
+        if c is None and particles is not None and SC_KEY in particles._data and vf._sc_owner:
+            # cross-step persistence: stage 1 starts from the last step's cache
+            c = _load_soa_cache(particles, vf)
 
-    q = index_search.query_xyz(y, x, spec.spherical)
-    if c is None:
-        # first eval of this kernel invocation: full batch
-        cgrid_cached_eval.full_evals += 1
-        cy, cx = max(spec.ydim, 1), max(spec.xdim, 1)
-        if particles is not None:
-            ei = particles._get_ei(vf.igrid)
-            xi_g = ei % cx
-            yi_g = torch.div(ei, cx, rounding_mode="floor") % cy
+        q = index_search.query_xyz(y, x, spec.spherical)
+        if c is None:
+            # first eval of this kernel invocation: full batch
+            cgrid_cached_eval.full_evals += 1
+            cy, cx = max(spec.ydim, 1), max(spec.xdim, 1)
+            if particles is not None:
+                ei = particles._get_ei(vf.igrid)
+                xi_g = ei % cx
+                yi_g = torch.div(ei, cx, rounding_mode="floor") % cy
+            else:
+                yi_g = torch.zeros(y.shape, **i32)
+                xi_g = torch.zeros(x.shape, **i32)
+            # K5 on the card (its plain version on the CPU): one call, every lane
+            c = cgrid_repair.cgrid_full(vf, y, x, q, ti, t1i, zc, wzi, yi_g, xi_g)
+            xsi, eta = c.pop("xsi"), c.pop("eta")
+            c["ti"] = ti
+            c["zi"] = zc
+            c["wzi"] = wzi
+            if particles is not None:
+                # only engine-driven evals cache (a host-side fieldset.eval has
+                # no kernel-call boundary to reset it)
+                vf._stage_cache = c
         else:
-            yi_g = torch.zeros(y.shape, **i32)
-            xi_g = torch.zeros(x.shape, **i32)
-        # K5 on the card (its plain version on the CPU): one call, every lane
-        c = cgrid_repair.cgrid_full(vf, y, x, q, ti, t1i, zc, wzi, yi_g, xi_g)
-        xsi, eta = c.pop("xsi"), c.pop("eta")
-        c["ti"] = ti
-        c["zi"] = zc
-        c["wzi"] = wzi
-        if particles is not None:
-            # only engine-driven evals cache (a host-side fieldset.eval has
-            # no kernel-call boundary to reset it)
+            K = min(n, max(1024, n // K_DIV))
+            c = dict(c)
+            # the JAX package checks the cache and runs the repair rounds in a
+            # while_loop over ceil(cnt/K); on the card one K5 call checks, plans
+            # and repairs every round and the counts stay device tensors, on the
+            # CPU the plain loop reads the misses once
+            mask = particles._mask if particles is not None else None
+            st = cgrid_repair.cgrid_stage(vf, c, y, x, q, ti, t1i, zc, wzi, mask, K)
+            xsi, eta = st.xsi, st.eta
+            cgrid_cached_eval.checked_lanes += n
+            cgrid_cached_eval.misses = cgrid_cached_eval.misses + st.cnt
+            cgrid_cached_eval.miss_rounds = cgrid_cached_eval.miss_rounds + st.rounds
             vf._stage_cache = c
-    else:
-        K = min(n, max(1024, n // K_DIV))
-        c = dict(c)
-        # the JAX package checks the cache and runs the repair rounds in a
-        # while_loop over ceil(cnt/K); on the card one K5 call checks, plans
-        # and repairs every round and the counts stay device tensors, on the
-        # CPU the plain loop reads the misses once
-        mask = particles._mask if particles is not None else None
-        st = cgrid_repair.cgrid_stage(vf, c, y, x, q, ti, t1i, zc, wzi, mask, K)
-        xsi, eta = st.xsi, st.eta
-        cgrid_cached_eval.checked_lanes += n
-        cgrid_cached_eval.misses = cgrid_cached_eval.misses + st.cnt
-        cgrid_cached_eval.miss_rounds = cgrid_cached_eval.miss_rounds + st.rounds
-        vf._stage_cache = c
 
-    u, v, w = _blend(spec, c["row"], xsi, eta, tau, zeta, c["u4"], c["v4"], c["w4"], Zw, y)
+        u, v, w = _blend(spec, c["row"], xsi, eta, tau, zeta, c["u4"], c["v4"], c["w4"], Zw, y)
 
-    if particles is not None:
-        particles.state = torch.maximum(particles.state, torch.maximum(esc_zt, c["esc"]))
-        _escalate(particles, torch.isnan(u) | torch.isnan(v) | torch.isnan(w),
-                  StatusCode.ErrorInterpolation)
-        # refresh the warm-start ei cache (field._update_particles_ei)
-        ydim, xdim = max(spec.ydim, 1), max(spec.xdim, 1)
-        particles._set_ei(vf.igrid, (zc * ydim + c["yi"]) * xdim + c["xi"])
+        if particles is not None:
+            particles.state = torch.maximum(particles.state, torch.maximum(esc_zt, c["esc"]))
+            _escalate(particles, torch.isnan(u) | torch.isnan(v) | torch.isnan(w),
+                      StatusCode.ErrorInterpolation)
+            # refresh the warm-start ei cache (field._update_particles_ei)
+            ydim, xdim = max(spec.ydim, 1), max(spec.xdim, 1)
+            particles._set_ei(vf.igrid, (zc * ydim + c["yi"]) * xdim + c["xi"])
 
-    # out-of-bounds samples return 0 (reference field.py:359-370)
-    mask0 = c["oob"] | z_oob
-    u = torch.where(mask0, 0.0, u)
-    v = torch.where(mask0, 0.0, v)
-    w = torch.where(mask0, 0.0, w)
-    if vf.vector_type == "3D":
-        return (u, v, w)
-    return (u, v)
+        # out-of-bounds samples return 0 (reference field.py:359-370)
+        mask0 = c["oob"] | z_oob
+        u = torch.where(mask0, 0.0, u)
+        v = torch.where(mask0, 0.0, v)
+        w = torch.where(mask0, 0.0, w)
+        if vf.vector_type == "3D":
+            return (u, v, w)
+        return (u, v)
 
 
 #: counters, read by chip_smoke.py: full-batch evals, miss repair rounds,

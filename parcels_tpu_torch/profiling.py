@@ -4,12 +4,56 @@ The JAX package exposes ``jax.profiler``; the port keeps its two names:
 
 - ``trace(logdir)``: context manager profiling the enclosed block (CPU
   activity, and CUDA activity where a card is present) and writing a
-  Chrome/Perfetto trace (``trace.json``) into ``logdir``.
-- ``annotate(name)``: named region (``torch.profiler.record_function``)
-  that shows up inside the trace.
+  Chrome/Perfetto trace (``trace.json``) into ``logdir``. The trace holds
+  the program's own ``parcels.*`` spans (below) beside torch's operations
+  and the card's kernels.
+- ``annotate(name)``: named region that shows up inside the trace; the
+  same as ``span``.
 - ``ParticleSet.last_run_stats``: per-execute dict with wall time, chunk
-  count and particle-steps/s (populated by every ``execute`` call).
+  count and particle-steps/s (counted from the lanes' own clocks).
 - ``FieldSet.window_stats``: windowed-streaming load/byte counters.
+
+Spans. ``span(name)`` records a ``torch.profiler.record_function`` range
+only while a torch profiler is recording (under ``trace``, or any other
+``torch.profiler.profile``); otherwise it returns one shared no-op context
+and calls nothing. A range sits on the profiler's host timeline, the clock
+the card's kernels are stamped on, so an idle gap of the card can be set
+against the span open at its start; the enclosing range is its parent.
+The program's spans, from the entry point down:
+
+- ``parcels.execute`` (one ``ParticleSet.execute`` call) >
+  ``parcels.execute.chunk`` (one output-interval chunk), with
+  ``parcels.execute.drain`` (the deferred error-flag read),
+  ``parcels.execute.output`` (a snapshot queued for the file),
+  ``parcels.window.load`` and ``parcels.window.prefetch`` (time windows);
+- ``parcels.engine.setup`` (field views, cell tables, the sort decision),
+  ``parcels.engine.sort``, ``parcels.engine.unsort``,
+  ``parcels.engine.block`` > ``parcels.engine.step`` >
+  ``parcels.kernel.<kernel name>`` (each call of the chain, Repeat rounds
+  included) and ``parcels.engine.update`` (position, clock and state);
+- ``parcels.sample.<tier>``: the interpolator's dispatch, ``k1``, ``k2``,
+  ``gather``, ``cgrid`` (the C-grid stage cache) or ``ux`` (the UGRID
+  cache);
+- ``parcels.k2.plan``, ``parcels.k2.kernel``, ``parcels.k2.fixup``: K2's
+  plan (when built), its kernel and the overflow lanes' gather;
+- ``parcels.cgrid.stage``, ``parcels.cgrid.flush``: a C-grid stage
+  (brackets, the K5 call, the blend) and the cache's write-back;
+- ``parcels.rng.draw``: one counter-based random draw;
+- ``parcels.sync.<site>``: one synchronizing read (or upload) of the host.
+
+Counters, plain integers that are always on and never reset (read them
+before and after the work of interest):
+
+- ``host_reads``: synchronizing host transfers on the main path, by site
+  (``sync``); a site's span is ``parcels.sync.<site>``;
+- ``block_steps``: ``engine_step`` calls (a set step of B blocks counts B);
+- ``k2_lanes``, ``k2_overflow_lanes``: each K2 plan's lanes and the lanes
+  its overflow gather samples again.
+
+The launch counters of the kernel wrappers (``fold_sample.launches``,
+``slab_sample.launches``, ``cgrid_repair.launches``, ...) and the stage
+caches' (``stagecache.cgrid_cached_eval``, ``uxcache.ux_cached_eval``) stay
+where they are.
 """
 
 from __future__ import annotations
@@ -18,8 +62,19 @@ import contextlib
 import os
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
-__all__ = ["annotate", "trace"]
+__all__ = ["annotate", "counters", "span", "sync", "trace"]
+
+#: synchronizing host transfers on the main path, by site
+host_reads: dict[str, int] = {}
+#: engine_step calls
+block_steps = 0
+#: lanes of every K2 plan, and those its overflow gather samples again
+k2_lanes = 0
+k2_overflow_lanes = 0
+
+_OFF = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -44,6 +99,30 @@ def trace(logdir: str, create_perfetto_link: bool = False):
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 
 
+def span(name: str, suffix: str = ""):
+    """Named range ``name + suffix`` on the profiler's host timeline while a
+    torch profiler records; a shared no-op context otherwise (the name is
+    then not even joined)."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return torch.profiler.record_function(name + suffix)
+
+
 def annotate(name: str):
     """Named trace region: ``with annotate("rk4 chunk"): ...``."""
-    return torch.profiler.record_function(name)
+    return span(name)
+
+
+def sync(site: str):
+    """Count one synchronizing host transfer at ``site`` and return the
+    ``parcels.sync.<site>`` span to do it in:
+    ``with profiling.sync("engine.loop"): go = bool(flag)``."""
+    host_reads[site] = host_reads.get(site, 0) + 1
+    return span("parcels.sync.", site)
+
+
+def counters() -> dict:
+    """The counters now: ``host_reads`` (all sites), ``block_steps``,
+    ``k2_lanes``, ``k2_overflow_lanes``."""
+    return {"host_reads": sum(host_reads.values()), "block_steps": block_steps,
+            "k2_lanes": k2_lanes, "k2_overflow_lanes": k2_overflow_lanes}
