@@ -31,8 +31,12 @@ counter is set to 0 just before a path runs and read just after):
 3. K2 (slab sampler) against its plain version and the plain gather, at
    the 3-D end-to-end shape with 2M lanes sorted by the port's key, with
    the bytes it stages a call beside its bound (counted by the kernel, and
-   held to ``staged_bytes``, the host's count of its rule), and K1's
-   kernel timed as a direct gather over the same sorted lanes (a reading);
+   held to ``staged_bytes``, the host's count of its rule), the sampler
+   (plan and K2) under ``torch.cuda.set_sync_debug_mode("error")``, and
+   K1's kernel timed as a direct gather over the same sorted lanes (a
+   reading); then K2 on a 2^21-lane block of 2^23 lanes on (k)'s product
+   shape sorted by the whole set's key (a quarter of its lanes overflow
+   their windows), bit for bit against the plain gather, and timed;
    then both kernels on edge cases (``edge_phase``);
 4. end to end through ``ParticleSet.execute``:
    (a) a regional hourly surface-current field (24, 1, 256, 1000) with 1M
@@ -499,19 +503,21 @@ def k2_phase(torch, dev):
     err = float((out - ref).abs().max())
     if not same_bits(torch, out, ref):  # same rounding order as the plain version
         raise AssertionError(f"K2 is not bit for bit equal to its plain version: max abs err {err}")
-    vals = bs.binned_linear_sample(data, gpos)
     g16 = bs._gather16(data, bs._gather_lanes(gpos))
-    err16 = float((vals - g16).abs().max())
-    # K2 takes the plain gather's stencil from each lane's own cell index, so
-    # the lanes it keeps, and with its fix-up every lane, equal the gather
-    live = ~plan["overflow"]
-    if not same_bits(torch, out[live], g16[live]) or not same_bits(torch, vals, g16):
-        raise AssertionError(f"K2 (+ fix-up) is not bit for bit the plain gather: {err16}")
-    share = plan["count"] / n
+    err16 = float((out - g16).abs().max())
+    # K2 takes the plain gather's stencil from each lane's own cell index and
+    # reads a corner outside its window from the field, so every lane, the
+    # plan's overflow lanes among them, equals the gather; the sampler (plan
+    # and K2) reads nothing back to the host
+    with no_host_reads(torch, whole=True):
+        vals = bs.binned_linear_sample(data, gpos)
+    if not same_bits(torch, out, g16) or not same_bits(torch, vals, g16):
+        raise AssertionError(f"K2 is not bit for bit the plain gather: {err16}")
+    share = int(plan["count"]) / n
     ms = cuda_ms(torch, lambda: bs.slab_sample(data, plan))
     queued_ms = cuda_ms(torch, lambda: bs.slab_sample(data, plan), queued=True)
     plain_ms = cuda_ms(torch, lambda: bs.slab_sample_plain(data, plan), reps=5)
-    fixed_ms = cuda_ms(torch, lambda: bs.binned_linear_sample(data, gpos), reps=5)
+    sampler_ms = cuda_ms(torch, lambda: bs.binned_linear_sample(data, gpos), reps=5)
     pos = [gpos[ax]["index"].float() + gpos[ax]["bcoord"] for ax in "TZYX"]
     plan_bytes = sum(a.numel() * 4 for a in (plan["t0"], plan["shalf"], plan["z0w"], plan["live"]))
     plan_bytes += sum(a.numel() * 4 for a in plan["origins"].values())
@@ -526,17 +532,76 @@ def k2_phase(torch, dev):
     log(f"[K2] shape {shape} lanes {n}: geometry (WT,SZ,SY,SX,bz,by,bx)={geom} feasible {feasible}, "
         f"window {4 * geom[0] * plan['WZ'] * geom[2] * geom[3]} B, ring of "
         f"{bs.ring_planes(geom)} planes, overflow share {share:.4f}; max abs err vs plain {err:.3g}, "
-        f"K2 on its {int(live.sum())} kept lanes and K2+fix-up on all equal the plain gather bit "
-        f"for bit; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, K2+plan "
-        f"fix-up {fixed_ms:.4f} ms, kernel queued behind a spin (device time alone) "
-        f"{queued_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, {nbytes} B); staged "
+        f"K2 on every lane equal to the plain gather bit for bit, the sampler with no host read; "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, plan + K2 {sampler_ms:.4f} ms, kernel "
+        f"queued behind a spin (device time alone) {queued_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}, {nbytes} B); staged "
         f"{staged} B a call as the kernel counted its copies ({staged / 1e6:.1f} MB; "
         f"{staged / HBM_BYTES_PER_S * 1e3:.4f} ms at the HBM rate), equal to the host's count "
         f"of its staging rule; no single library call computes a 4-D (t,z,y,x) sample; "
         f"ptxas: {ptxas_lines('slab_sample')}")
     direct_gather_reading(torch, data, pos, g16)
+    del data, gpos, plan, out, ref, vals, g16, pos
+    cmems = k2_cmems_block(torch, dev)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=None)
+                library_ms=None, cmems_ms=cmems["ms"], cmems_overflow=cmems["overflow"])
+
+
+#: lanes of a benchmark set on the Copernicus Marine product, and of one engine block
+K2_SET_LANES, K2_BLOCK_LANES = 1 << 23, 1 << 21
+
+
+def k2_cmems_block(torch, dev):
+    """K2 on a block of the Copernicus Marine product as the engine gives it:
+    2^23 lanes uniform over ocean cells of (k)'s land mask (lon +-170, lat
+    -70..80, one time level), sorted by the key of the whole set, the second
+    2^21-lane block planned with its own lane count (about a quarter of its
+    lanes then have a corner outside their window). K2 against the plain
+    gather on every lane, bit for bit; K2 and plan + K2 timed."""
+    from parcels_tpu_torch.ops import binned_sample as bs
+
+    shape = K_SHAPE
+    _, _, Y, X = shape
+    rng = np.random.default_rng(9)
+    ocean = ~land_mask(rng, Y, X)
+    g = torch.Generator(device=dev).manual_seed(5)
+    data = (torch.rand(shape, generator=g, device=dev) - 0.5) * 2.0
+    lat_row = (Y - 1) / 170.0  # rows a degree of latitude, from -80 degrees
+    cand = 2 * K2_SET_LANES
+    y = rng.uniform((-70.0 + 80.0) * lat_row, (80.0 + 80.0) * lat_row, cand)
+    x = rng.uniform(10.0 * X / 360.0, 350.0 * X / 360.0, cand)
+    keep = ocean[y.astype(np.int64), x.astype(np.int64)]
+    y, x = y[keep][:K2_SET_LANES], x[keep][:K2_SET_LANES]
+    n = K2_SET_LANES
+    gpos = {"T": {"index": torch.full((n,), 5, dtype=torch.int32, device=dev),
+                  "bcoord": torch.full((n,), 0.375, device=dev)},
+            "Z": {"index": torch.zeros(n, dtype=torch.int32, device=dev),
+                  "bcoord": torch.zeros(n, device=dev)}}
+    for ax, p in (("Y", y), ("X", x)):
+        cell = np.floor(p)
+        gpos[ax] = {"index": torch.as_tensor(cell.astype(np.int32), device=dev),
+                    "bcoord": torch.as_tensor((p - cell).astype(np.float32), device=dev)}
+    order = torch.sort(bs.sort_key_for(None, gpos, shape, n), stable=True).indices
+    block = order[K2_BLOCK_LANES:2 * K2_BLOCK_LANES]
+    bpos = {ax: {k: v[block].contiguous() for k, v in gpos[ax].items()} for ax in "TZYX"}
+    bpos["_sorted"] = True
+    del gpos, order, block
+    plan = bs._build_plan(shape, bpos)
+    out = bs.slab_sample(data, plan)
+    g16 = bs._gather16(data, bs._gather_lanes(bpos))
+    if not same_bits(torch, out, g16):
+        raise AssertionError("K2 on the Copernicus block is not bit for bit the plain gather: "
+                             f"{float((out - g16).abs().max())}")
+    share = int(plan["count"]) / K2_BLOCK_LANES
+    ms = cuda_ms(torch, lambda: bs.slab_sample(data, plan))
+    queued_ms = cuda_ms(torch, lambda: bs.slab_sample(data, plan), queued=True)
+    sampler_ms = cuda_ms(torch, lambda: bs.binned_linear_sample(data, bpos), reps=10)
+    log(f"[K2 cmems block] {shape} field, lanes {K2_BLOCK_LANES} of {n} sorted by the set's key: "
+        f"plan geometry {bs.slab_geometry(shape, K2_BLOCK_LANES)}, sort geometry "
+        f"{bs.slab_geometry(shape, n)}; overflow share {share:.5f}; K2 on every lane equal to "
+        f"the plain gather bit for bit; kernel {ms:.4f} ms, queued {queued_ms:.4f} ms, plan + "
+        f"K2 {sampler_ms:.4f} ms")
+    return dict(ms=ms, queued_ms=queued_ms, sampler_ms=sampler_ms, overflow=share)
 
 
 def direct_gather_reading(torch, data, pos, g16):
@@ -2660,11 +2725,11 @@ def binned_calls():
 
 
 def k2_on_path(torch, what, seen):
-    """K2 against its plain version, bit for bit, at the shapes a main path
-    gave it: the field window and engine-sorted lanes of the last stage with
-    the most lanes, planned anew with ``_build_plan``. The plan's overflow
-    must stay in the fix-up's capacity, so that K2's values are the ones
-    kept. Returns a summary for the log."""
+    """K2 against its plain version, and against the plain gather on every
+    live lane, bit for bit, at the shapes a main path gave it: the field
+    window and engine-sorted lanes of the last stage with the most lanes,
+    planned anew with ``_build_plan``. Returns a summary for the log, with
+    the stage's overflow share (lanes K2 served partly from the field)."""
     from parcels_tpu_torch.ops import binned_sample as bs
 
     if seen["last"] is None:
@@ -2679,20 +2744,17 @@ def k2_on_path(torch, what, seen):
     if not same_bits(torch, out, ref):
         raise AssertionError(f"{what}: K2 is not bit for bit equal to its plain version at "
                              f"{shape4}, {n} lanes: max abs err {err}")
-    live = ~plan["overflow"]
+    live = plan["live"][torch.arange(n, device=data.device) // bs.CHUNK] == 1
     if gpos.get("active") is not None:
         live = live & gpos["active"][:n]
     g16 = bs._gather16(data, bs._gather_lanes(gpos))
     if not same_bits(torch, out[live], g16[live]):
         raise AssertionError(f"{what}: K2 is not bit for bit the plain gather on its live lanes "
                              f"at {shape4}, {n} lanes")
-    k_big = min(n, max(4096, n // bs._K_BIG_DIV))
-    if plan["count"] > k_big:
-        raise AssertionError(f"{what}: {plan['count']} of {n} lanes overflow K2's slabs (fix-up "
-                             f"capacity {k_big}), so the whole batch fell back to the gather")
+    share = int(plan["count"]) / n
     ms = cuda_ms(torch, lambda: bs.slab_sample(data, plan), reps=10)
     return (f"K2 at {shape4} on {n} engine-sorted lanes (geometry {bs.slab_geometry(shape4, n)}, "
-            f"{plan['npad'] // bs.CHUNK} chunks, overflow share {plan['count'] / n:.5f}): bit for "
+            f"{plan['npad'] // bs.CHUNK} chunks, overflow share {share:.5f}): bit for "
             f"bit equal to its plain version (max abs err {err:.3g}) and, on its {int(live.sum())} "
             f"live lanes, to the plain gather, {ms:.4f} ms; sampler calls "
             f"by (shape, lanes): {seen['calls']}")
@@ -2926,8 +2988,8 @@ def convert_phase(torch, tp, ds_k, fs_k):
     there the binned sampler is forced on both devices (K2 on the card, its
     plain version on the CPU); the Delft3D mesh takes K2 on its own. The
     MITgcm release covers the central 40 % of each side: over 80 % of them,
-    64K lanes leave about 14 % of the lanes outside their chunk's slab,
-    past the fix-up's 1/8, and the sampler then gathers the whole batch."""
+    64K lanes leave about 14 % of the lanes outside their chunk's slab, and
+    K2 reads their outside corners from the field."""
     from parcels_tpu_torch.ops.interp_kernels import fits_fast_path
 
     binned = tp.EngineOptions(sampler="binned")
@@ -3161,15 +3223,15 @@ def diverged(what, got, ref, tol=1e-4):
 
 
 def k2_overflow_share(seen):
-    """Share of the last sampled batch's lanes outside their chunk's slab (the
-    fix-up gather's lanes) under the plan K2 would run."""
+    """Share of the last sampled batch's lanes with a corner outside their
+    window (read by K2 from the field) under the plan K2 would run."""
     from parcels_tpu_torch.ops import binned_sample as bs
 
     if seen["last"] is None:
         return None
     data, gpos = seen["last"]
     plan = bs._build_plan(tuple(data.shape), gpos)
-    return plan["count"] / int(gpos["X"]["index"].shape[0])
+    return int(plan["count"]) / int(gpos["X"]["index"].shape[0])
 
 
 def l_rank(cfg):

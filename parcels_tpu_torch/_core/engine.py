@@ -36,8 +36,8 @@ __all__ = ["DEFAULT_BLOCK_SIZE", "RESORT_EVERY", "compute_loop_masks", "engine_s
 DEFAULT_BLOCK_SIZE = 2**21
 
 #: re-sort the SoA every N inner steps while in binned+sorted mode, so the
-#: positional drift since the chunk-boundary sort never pushes the slab
-#: sampler's overflow past its fix-up capacity tier
+#: positional drift since the chunk-boundary sort keeps most lanes inside
+#: their slab sampler windows
 RESORT_EVERY = 16
 
 

@@ -549,7 +549,7 @@ class ParticleSet:
                     seeded = bool(self._data["ei"].any())
                 if not seeded:
                     # sort keys come from the ei cache; seed it so the FIRST chunk
-                    # bins correctly instead of overflowing to the gather fix-up
+                    # bins correctly instead of overflowing its windows
                     self.populate_indices()
         windowed = self.fieldset._time_window is not None
         f32 = dict(dtype=torch.float32, device=self.device)

@@ -45,13 +45,14 @@
 // corners clamp(index + k, 0, dim - 1), weights 1 - bcoord and bcoord (one
 // corner of weight 1 on an axis of one point), each corner's value times
 // the t, z, y and x weights in that order, summed in corner order from the
-// first term. Its window-relative corner is the integer corner less the
-// window's origin, so the value does not depend on the window: a lane whose
-// corners all lie in its window gets the gather's bits, whichever chunk or
-// tier serves it. A corner outside the window reads 0; the plan flags such
-// lanes as overflow and the caller replaces them with the gather. Every
-// product and sum is rounded on its own (no FMA), so the kernel equals its
-// plain version (ops/binned_sample.slab_sample_plain) bit for bit.
+// first term. A corner inside the lane's window reads the window's copy in
+// shared memory; a corner outside it (the plan's overflow lanes: chunks
+// straddling three bins, sub-blocks straddling a z transition, stale or
+// unsorted lanes) reads the field in device memory through the read-only
+// path. So every lane of a live chunk gets the gather's bits, whichever
+// chunk serves it, and no lane needs a second pass. Every product and sum is
+// rounded on its own (no FMA), so the kernel equals its plain version
+// (ops/binned_sample.slab_sample_plain) bit for bit.
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -174,8 +175,9 @@ __device__ void stage(const float* __restrict__ data, float* ring, const Window&
 // group loads the planes of its span that the previous group's span (of
 // the same origin) did not hold, its lanes load their positions meanwhile,
 // and each thread samples one lane once the planes have landed.
+// Two blocks an SM (ops/binned_sample.k2_grid), so at most 64 registers a thread.
 template <bool VEC>
-__global__ void __launch_bounds__(THREADS) slab_sample_kernel(
+__global__ void __launch_bounds__(THREADS, 2) slab_sample_kernel(
     const float* __restrict__ data, Geometry g, const int* __restrict__ t0,
     const int* __restrict__ z1, const int* __restrict__ y1, const int* __restrict__ x1,
     const int* __restrict__ z2, const int* __restrict__ y2, const int* __restrict__ x2,
@@ -272,23 +274,43 @@ __global__ void __launch_bounds__(THREADS) slab_sample_kernel(
             const int dim[4] = {g.T, g.Z, g.Y, g.X};
             const int org[4] = {w.t0, w.z, w.y, w.x};
             const int ext[4] = {g.WT, g.WZ, g.SY, g.SX};
-            int c[4][2];
+            int c[4][2];  // the field's corners
             float wgt[4][2];
-            bool ok[4][2];
+            bool ok[4][2];  // the corner lies in the window
 #pragma unroll
             for (int a = 0; a < 4; ++a) {
                 const int top = dim[a] - 1;
-                const int lo = min(max(idx[a], 0), top);
+                c[a][0] = min(max(idx[a], 0), top);
                 // clamp(index + 1, 0, top) without overflowing index + 1
-                const int hi = idx[a] >= top ? top : max(idx[a] + 1, 0);
-                c[a][0] = lo - org[a];
-                c[a][1] = hi - org[a];
+                c[a][1] = idx[a] >= top ? top : max(idx[a] + 1, 0);
                 wgt[a][0] = top > 0 ? __fsub_rn(1.0f, bc[a]) : 1.0f;
                 wgt[a][1] = bc[a];
 #pragma unroll
-                for (int kk = 0; kk < 2; ++kk) ok[a][kk] = c[a][kk] >= 0 && c[a][kk] < ext[a];
+                for (int kk = 0; kk < 2; ++kk)
+                    ok[a][kk] = (unsigned)(c[a][kk] - org[a]) < (unsigned)ext[a];
             }
             const int nt = g.T > 1 ? 2 : 1, nz = g.Z > 1 ? 2 : 1;
+            // the corners outside the window, read from the field first, all
+            // at once, where any lane of the warp has one
+            float far[2][2][2][2];
+            const bool inside = ok[0][0] && ok[0][1] && ok[1][0] && ok[1][1] && ok[2][0] &&
+                                ok[2][1] && ok[3][0] && ok[3][1];
+            const bool warp_inside = __all_sync(__activemask(), inside);
+#pragma unroll
+            for (int kt = 0; kt < 2; ++kt)
+#pragma unroll
+                for (int kz = 0; kz < 2; ++kz)
+#pragma unroll
+                    for (int ky = 0; ky < 2; ++ky)
+#pragma unroll
+                        for (int kx = 0; kx < 2; ++kx) {
+                            far[kt][kz][ky][kx] = 0.0f;
+                            if (!warp_inside && kt < nt && kz < nz &&
+                                !(ok[0][kt] && ok[1][kz] && ok[2][ky] && ok[3][kx]))
+                                far[kt][kz][ky][kx] =
+                                    __ldg(data + (((long long)c[0][kt] * g.Z + c[1][kz]) * g.Y +
+                                                  c[2][ky]) * g.X + c[3][kx]);
+                        }
             const int slot0 = w.z % g.RZ;
             float acc = 0.0f;
 #pragma unroll
@@ -301,12 +323,13 @@ __global__ void __launch_bounds__(THREADS) slab_sample_kernel(
                     for (int ky = 0; ky < 2; ++ky) {
 #pragma unroll
                         for (int kx = 0; kx < 2; ++kx) {
-                            float v = 0.0f;
+                            float v = far[kt][kz][ky][kx];
                             if (ok[0][kt] && ok[1][kz] && ok[2][ky] && ok[3][kx]) {
-                                int slot = slot0 + c[1][kz];
+                                int slot = slot0 + (c[1][kz] - w.z);
                                 if (slot >= g.RZ) slot -= g.RZ;
-                                const int r = (c[0][kt] * g.RZ + slot) * g.SY + c[2][ky];
-                                v = ring[r * g.SX + c[3][kx]];
+                                const int r = ((c[0][kt] - w.t0) * g.RZ + slot) * g.SY +
+                                              (c[2][ky] - w.y);
+                                v = ring[r * g.SX + (c[3][kx] - w.x)];
                             }
                             v = __fmul_rn(v, wgt[0][kt]);
                             v = __fmul_rn(v, wgt[1][kz]);

@@ -10,18 +10,17 @@ The hand-written kernel (``csrc/slab_sample.cu``) stages each sub-block's
 only the planes the previous windows did not hold (``staged_bytes``
 counts them), and samples its lanes there.
 
-Lanes outside their sub-block's window ("overflow": chunks straddling three
-bins, sub-blocks straddling a z transition, stale lanes, an unsorted SoA)
-are repaired by a capacity-K compacted plain gather (``_gather16``) in tiers
-n/48, n/8 and full, so correctness never depends on sortedness.
-
-The tiers are invisible: K2 reads each lane's own integer cell index and f32
-bcoord (the search's), forms its window-relative corner as the integer
-``clamp(index + k) - origin`` and takes ``_gather16``'s corners, weights,
-product order and first term, so a lane inside its window gets from K2
-the bits the gather gives it. A lane's value then depends neither on the
-chunk it shares nor on the overflow count, and a run's bits follow neither
-the sort points nor the chunk lengths that set them.
+K2 reads each lane's own integer cell index and f32 bcoord (the search's)
+and takes the plain gather's (``_gather16``) corners, weights, product order
+and first term. A corner inside the sub-block's window reads the staged
+copy; a corner outside it ("overflow" lanes: chunks straddling three bins,
+sub-blocks straddling a z transition, stale lanes, an unsorted SoA) reads
+the field in device memory. So every lane of a live chunk gets the gather's
+bits from the one kernel call: correctness never depends on sortedness, a
+lane's value depends neither on the chunk it shares nor on how many lanes
+overflow, and a run's bits follow neither the sort points nor the chunk
+lengths that set them. The plan still counts its overflow lanes
+(``profiling.k2_overflow_lanes``), on the device, without a host read.
 
 What changed for the card: the JAX planner sized a slab pair for the TPU's
 on-chip memory, scored it with the TPU's FLOP/byte rate and aligned DMA
@@ -73,9 +72,6 @@ K2_MAX_CHUNKS = 64
 GROUP_SUBBLOCKS = 4
 #: want at least this many particles per bin (in CHUNK units)
 _BIN_FILL = 3
-#: overflow fix-up tier capacities, as n/DIV
-_K_SMALL_DIV = 48
-_K_BIG_DIV = 8
 #: shared-memory budget of one staged window (a block may use 227 KB)
 SMEM_WINDOW_BYTES = 200 * 1024
 #: x origins align to this many floats (16-byte loads)
@@ -319,7 +315,7 @@ def _build_plan(shape4, gpos):
     overflow = overflow | ~inside
 
     # dead lanes (capacity padding, deleted particles) never need values:
-    # drop them from the overflow budget; chunks with no live lane are
+    # leave them out of the overflow count; chunks with no live lane are
     # skipped by the kernel
     active = gpos.get("active")
     if active is not None:
@@ -330,10 +326,9 @@ def _build_plan(shape4, gpos):
         live = torch.ones(G, dtype=i32, device=zb.device)
 
     overflow = overflow.reshape(npad)[:n]
-    with profiling.sync("k2.plan"):
-        count = int(overflow.sum())
+    count = overflow.sum()
     profiling.k2_lanes += n
-    profiling.k2_overflow_lanes += count
+    profiling.add_k2_overflow(count)
     return {
         "G": G,
         "NS": NS,
@@ -349,8 +344,8 @@ def _build_plan(shape4, gpos):
         # each lane's own cell index and bcoord, (T, Z, Y, X), as the gather reads them
         "index": tuple(gpos[ax]["index"].to(i32).contiguous() for ax in "TZYX"),
         "bcoord": tuple(gpos[ax]["bcoord"].to(torch.float32).contiguous() for ax in "TZYX"),
+        # lanes with a corner outside their window, which K2 reads from the field
         "overflow": overflow,
-        # one host read per plan: the fix-up tier is chosen on the host
         "count": count,
     }
 
@@ -371,7 +366,7 @@ def _get_plan(shape4, gpos):
 
 
 def _lane_windows(plan, device):
-    """Per-lane window origin (t, z, y, x) and z-window offset."""
+    """Per-lane window origin (t, z, y, x)."""
     npad, NS = plan["npad"], plan["NS"]
     sub = torch.arange(npad, device=device) // LANE
     chunk = sub // NS
@@ -381,14 +376,11 @@ def _lane_windows(plan, device):
     def pick(a1, a2):
         return torch.where(h, a2[chunk], a1[chunk]).to(torch.int64)
 
-    zw = plan["z0w"][sub]
     return (
         plan["t0"][chunk].to(torch.int64),
-        pick(o["z1"], o["z2"]) + zw,
+        pick(o["z1"], o["z2"]) + plan["z0w"][sub],
         pick(o["y1"], o["y2"]),
         pick(o["x1"], o["x2"]),
-        zw,
-        chunk,
     )
 
 
@@ -404,26 +396,21 @@ def _levels(index, bcoord, dim):
 def slab_sample_plain(data: torch.Tensor, plan) -> torch.Tensor:
     """Plain PyTorch version of K2, operation for operation: (n,) values.
 
-    A corner outside the lane's window reads 0 (such a lane is overflow,
-    and the fix-up replaces it); a lane inside its window gets ``_gather16``'s
-    value bit for bit. Lanes of dead chunks are 0.
+    Every lane of a live chunk gets ``_gather16``'s value bit for bit: a
+    corner reads the field element that K2 reads from its window's copy or,
+    outside the window, from device memory. Lanes of dead chunks are 0.
     """
     T, Z, Y, X = data.shape
-    WT, _, SY, SX = plan["geom"][:4]
     n = plan["n"]
     flat = data.reshape(-1)
-    *org, _, chunk = (a[:n] for a in _lane_windows(plan, data.device))
+    chunk = torch.arange(n, device=data.device) // CHUNK
     lv = [_levels(i, b, d) for i, b, d in zip(plan["index"], plan["bcoord"], (T, Z, Y, X))]
-    inw = [[(c >= o) & (c < o + e) for c, _ in lvl]
-           for lvl, o, e in zip(lv, org, (WT, plan["WZ"], SY, SX))]
     acc = None
-    for (ct, wt), it in zip(lv[0], inw[0]):
-        for (cz, wz), iz in zip(lv[1], inw[1]):
-            for (cy, wy), iy in zip(lv[2], inw[2]):
-                for (cx, wx), ix in zip(lv[3], inw[3]):
-                    ok = it & iz & iy & ix
-                    lin = ((ct * Z + cz) * Y + cy) * X + cx
-                    v = torch.where(ok, flat[torch.where(ok, lin, 0)], 0.0)
+    for ct, wt in lv[0]:
+        for cz, wz in lv[1]:
+            for cy, wy in lv[2]:
+                for cx, wx in lv[3]:
+                    v = flat[((ct * Z + cz) * Y + cy) * X + cx]
                     v = (((v * wt) * wz) * wy) * wx
                     acc = v if acc is None else acc + v
     return torch.where(plan["live"][chunk] == 1, acc, 0.0)
@@ -539,7 +526,7 @@ def scripted_plan(shape4, geom, t0, org1, org2, shalf, z0w, live, seed=0, device
         "live": ints(live),
     }
     index, bcoord = [], []
-    for o, ext in zip(_lane_windows(plan, "cpu")[:4], (WT, WZ, SY, SX)):
+    for o, ext in zip(_lane_windows(plan, "cpu"), (WT, WZ, SY, SX)):
         pos = o.to(torch.float32) + torch.rand(npad, generator=g) * (ext + 0.2) - 0.6
         cell = torch.floor(pos)
         index.append(cell.to(torch.int32).contiguous())
@@ -582,7 +569,8 @@ def edge_plans(X=520, device="cpu"):
 
 
 def slab_sample(data: torch.Tensor, plan, staged: torch.Tensor | None = None) -> torch.Tensor:
-    """Sample every planned lane from its staged window: (n,) values.
+    """Sample every planned lane, from its staged window where its corners
+    lie there and from the field where they do not: (n,) values.
 
     On a CUDA tensor this launches K2 (``slab_sample.launches`` counts the
     launches); on a CPU tensor it runs the plain version. ``staged``, a
@@ -639,7 +627,7 @@ slab_sample.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# overflow correction (compacted gather) + public entry
+# the plain gather (the reference K2 is held to) + public entry
 # ---------------------------------------------------------------------------
 
 
@@ -651,7 +639,8 @@ def _axis_pairs(idx, bc, dim):
 
 
 def _gather16(data, gidx):
-    """Plain multilinear gather for the selected lanes (overflow fix-up)."""
+    """Plain multilinear gather of the selected lanes: what K2 gives every
+    lane of a live chunk, bit for bit."""
     T, Z, Y, X = data.shape
     flat = data.reshape(-1)
     val = None
@@ -668,18 +657,15 @@ def _gather16(data, gidx):
     return val
 
 
-def _gather_lanes(gpos, idx=None):
-    """{axis: (int64 index, f32 bcoord)} of all lanes, or of lanes ``idx``."""
-    out = {}
-    for ax in "TZYX":
-        i = gpos[ax]["index"].to(torch.int64)
-        b = gpos[ax]["bcoord"].to(torch.float32)
-        out[ax] = (i, b) if idx is None else (i[idx], b[idx])
-    return out
+def _gather_lanes(gpos):
+    """{axis: (int64 index, f32 bcoord)} of all lanes."""
+    return {ax: (gpos[ax]["index"].to(torch.int64), gpos[ax]["bcoord"].to(torch.float32))
+            for ax in "TZYX"}
 
 
 def binned_linear_sample(data, gpos):
-    """Multilinear sample of a (T, Z, Y, X) field via sorted-chunk slabs.
+    """Multilinear sample of a (T, Z, Y, X) field via sorted-chunk slabs: the
+    plan, then one K2 call, with no host read.
 
     Values of lanes with out-of-bounds sentinel indices are arbitrary: the
     caller masks them (``field._mask_oob_values``), as on the gather path.
@@ -690,20 +676,4 @@ def binned_linear_sample(data, gpos):
         return torch.empty(0, dtype=torch.float32, device=data.device)
     plan = _get_plan(shape4, gpos)
     with profiling.span("parcels.k2.kernel"):
-        vals = slab_sample(data, plan)
-
-    # tiered capacity: the steady engine-sorted state has near-zero overflow
-    # (sub-block z/bin transition tails only), so the common tier is small
-    count = plan["count"]
-    k_small = min(n, max(4096, n // _K_SMALL_DIV))
-    k_big = min(n, max(4096, n // _K_BIG_DIV))
-    with profiling.span("parcels.k2.fixup"):
-        if count > k_big:
-            return _gather16(data, _gather_lanes(gpos))
-        K = k_small if count <= k_small else k_big
-        # stream compaction: the j-th overflow lane is the first position where
-        # the running count reaches j+1 (slots past the count land on lane n-1)
-        cum = torch.cumsum(plan["overflow"].to(torch.int64), 0)
-        idx = torch.searchsorted(cum, torch.arange(1, K + 1, device=data.device))
-        idx = torch.clamp(idx, max=n - 1)
-        return vals.index_put((idx,), _gather16(data, _gather_lanes(gpos, idx)))
+        return slab_sample(data, plan)

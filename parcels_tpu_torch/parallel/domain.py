@@ -926,8 +926,8 @@ def lockstep_chunk(dom, migrate, kernel_fns, farrays, pd, endtime, dt0, *, sign_
     (as in the JAX band executor): a migration changes the lane set every
     step, so the SoA is sorted for the slab sampler at the chunk's start and
     every ``RESORT_EVERY`` steps, as ``run_chunk`` does; lanes merged in
-    between fall to the sampler's overflow fix-up, whose values are the
-    kernel's arithmetic. Lanes never interact, so the lanes' order changes
+    between have corners outside their windows, which K2 reads from the
+    field with the same arithmetic. Lanes never interact, so the lanes' order changes
     no value.
     """
     from parcels_tpu_torch.ops import stagecache

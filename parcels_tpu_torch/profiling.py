@@ -34,8 +34,8 @@ The program's spans, from the entry point down:
 - ``parcels.sample.<tier>``: the interpolator's dispatch, ``k1``, ``k2``,
   ``gather``, ``cgrid`` (the C-grid stage cache) or ``ux`` (the UGRID
   cache);
-- ``parcels.k2.plan``, ``parcels.k2.kernel``, ``parcels.k2.fixup``: K2's
-  plan (when built), its kernel and the overflow lanes' gather;
+- ``parcels.k2.plan``, ``parcels.k2.kernel``: K2's plan (when built) and
+  its kernel;
 - ``parcels.cgrid.stage``, ``parcels.cgrid.flush``: a C-grid stage
   (brackets, the K5 call, the blend) and the cache's write-back;
 - ``parcels.rng.draw``: one counter-based random draw;
@@ -47,8 +47,10 @@ before and after the work of interest):
 - ``host_reads``: synchronizing host transfers on the main path, by site
   (``sync``); a site's span is ``parcels.sync.<site>``;
 - ``block_steps``: ``engine_step`` calls (a set step of B blocks counts B);
-- ``k2_lanes``, ``k2_overflow_lanes``: each K2 plan's lanes and the lanes
-  its overflow gather samples again.
+- ``k2_lanes``, ``k2_overflow_lanes``: each K2 plan's lanes and those with
+  a corner outside their window, which K2 reads from device memory. A
+  plan's overflow count stays on its device (``add_k2_overflow``) and is
+  folded into ``k2_overflow_lanes`` when ``counters()`` is called.
 
 The launch counters of the kernel wrappers (``fold_sample.launches``,
 ``slab_sample.launches``, ``cgrid_repair.launches``, ...) and the stage
@@ -64,15 +66,17 @@ import os
 import torch
 from torch.autograd import profiler as _autograd_profiler
 
-__all__ = ["annotate", "counters", "span", "sync", "trace"]
+__all__ = ["add_k2_overflow", "annotate", "counters", "span", "sync", "trace"]
 
 #: synchronizing host transfers on the main path, by site
 host_reads: dict[str, int] = {}
 #: engine_step calls
 block_steps = 0
-#: lanes of every K2 plan, and those its overflow gather samples again
+#: lanes of every K2 plan, and those with a corner outside their window
 k2_lanes = 0
 k2_overflow_lanes = 0
+#: overflow counts of plans on a card, by device, not yet folded in
+_k2_overflow_pending: dict = {}
 
 _OFF = contextlib.nullcontext()
 
@@ -121,8 +125,28 @@ def sync(site: str):
     return span("parcels.sync.", site)
 
 
+def add_k2_overflow(count: torch.Tensor) -> None:
+    """Add a K2 plan's overflow count (a 0-dim integer tensor) to
+    ``k2_overflow_lanes``: at once on the CPU; on a card into a tensor on
+    that device, with no host read, until ``counters()`` folds it in."""
+    global k2_overflow_lanes
+    if count.device.type == "cpu":
+        k2_overflow_lanes += int(count)
+        return
+    pending = _k2_overflow_pending.get(count.device)
+    if pending is None:
+        _k2_overflow_pending[count.device] = count.clone()
+    else:
+        pending.add_(count)
+
+
 def counters() -> dict:
     """The counters now: ``host_reads`` (all sites), ``block_steps``,
-    ``k2_lanes``, ``k2_overflow_lanes``."""
+    ``k2_lanes``, ``k2_overflow_lanes`` (reading the card's pending
+    overflow counts)."""
+    global k2_overflow_lanes
+    for pending in _k2_overflow_pending.values():
+        k2_overflow_lanes += int(pending)
+    _k2_overflow_pending.clear()
     return {"host_reads": sum(host_reads.values()), "block_steps": block_steps,
             "k2_lanes": k2_lanes, "k2_overflow_lanes": k2_overflow_lanes}

@@ -1,7 +1,7 @@
 """K2 (binned slab sampler) of the port against parcels_tpu's, same inputs.
 
-The port's plan, the plain version of its K2 and its overflow fix-up are
-held, end to end, to the JAX ``binned_linear_sample`` (forced, Pallas in
+The port's plan and the plain version of its K2 are held, end to end, to
+the JAX ``binned_linear_sample`` (forced, Pallas in
 interpret mode) on the shapes of tests/test_binned_sample.py, at
 rtol 2e-4 / atol 2e-5: the JAX package's own tolerance there, which covers
 its bf16 hi/lo matrix-unit split (~1e-5 relative). The two planners size
@@ -72,17 +72,18 @@ def test_binned_matches_reference_sorted(shape4, lockstep):
 
 
 def test_binned_unsorted_matches_reference():
-    """Unsorted lanes overflow massively -> the full-gather tier; still exact."""
+    """Unsorted lanes overflow massively: K2 reads their corners from the
+    field; still exact."""
     shape4 = (2, 6, 48, 640)
     rng = np.random.default_rng(5)
     data = rng.uniform(-1, 1, shape4).astype(np.float32)
     got, want, tg = _both(data, _random_positions(rng, 4096, shape4))
-    assert tbs._get_plan(shape4, tg)["count"] > 4096 // 8
+    assert int(tbs._get_plan(shape4, tg)["count"]) > 4096 // 8
     np.testing.assert_allclose(got, want, **TOL)
 
 
 def test_binned_partial_overflow_matches_reference():
-    """A few far-away lanes inside sorted chunks take the K-capacity fix-up."""
+    """A few far-away lanes inside sorted chunks overflow their windows."""
     shape4 = (2, 1, 64, 1024)
     rng = np.random.default_rng(7)
     data = rng.uniform(-1, 1, shape4).astype(np.float32)
@@ -92,7 +93,7 @@ def test_binned_partial_overflow_matches_reference():
     pos["Y"][0][lanes] = rng.integers(0, 63, 50)
     pos["X"][0][lanes] = rng.integers(0, 1023, 50)
     got, want, tg = _both(data, pos)
-    assert 50 <= tbs._get_plan(shape4, tg)["count"] <= 4096
+    assert 50 <= int(tbs._get_plan(shape4, tg)["count"]) <= 4096
     np.testing.assert_allclose(got, want, **TOL)
 
 
@@ -107,7 +108,7 @@ def test_plain_equals_gather_on_window_lanes():
     pos = _sort_positions(_random_positions(rng, n, shape4), shape4)
     tg = {ax: {"index": torch.as_tensor(i), "bcoord": torch.as_tensor(b)} for ax, (i, b) in pos.items()}
     plan = tbs._build_plan(shape4, tg)
-    assert plan["count"] / n < 0.05, "sorted lanes must ride the kernel, not the fix-up"
+    assert int(plan["count"]) / n < 0.05, "sorted lanes must lie inside their windows"
     vals = tbs.slab_sample_plain(data, plan)[:n]
     ref = tbs._gather16(data, tbs._gather_lanes(tg))
     ok = ~plan["overflow"]
@@ -116,9 +117,9 @@ def test_plain_equals_gather_on_window_lanes():
 
 def test_plain_equals_gather_bit_for_bit_on_live_lanes():
     """On the inputs of test_plain_equals_gather_on_window_lanes, K2's plain
-    version equals ``_gather16`` bit for bit on every lane it keeps (live,
-    not overflow), and K2 with its fix-up equals it on every lane: which tier
-    serves a lane, and which chunk it shares, changes no bit."""
+    version equals ``_gather16`` bit for bit on every lane inside its window,
+    and the sampler equals it on every lane: whether a lane overflows its
+    window, and which chunk it shares, changes no bit."""
     shape4 = (2, 16, 64, 512)
     rng = np.random.default_rng(11)
     data = torch.as_tensor(rng.uniform(-1, 1, shape4).astype(np.float32))
@@ -136,6 +137,46 @@ def test_plain_equals_gather_bit_for_bit_on_live_lanes():
     part = {ax: {k: v[100:] for k, v in d.items()} for ax, d in tg.items() if ax in "TZYX"}
     part["_sorted"] = True
     assert torch.equal(tbs.binned_linear_sample(data, part), ref[100:])
+
+
+def _overflow_inputs(kind):
+    """(data, gpos) of the sorted, partial-overflow and unsorted tests above,
+    with the last chunk's lanes dead."""
+    if kind == "sorted":
+        shape4, n, seed = (2, 16, 64, 512), 64 * tbs.CHUNK, 11
+    elif kind == "partial":
+        shape4, n, seed = (2, 1, 64, 1024), 6000, 7
+    else:
+        shape4, n, seed = (2, 6, 48, 640), 4096, 5
+    rng = np.random.default_rng(seed)
+    data = torch.as_tensor(rng.uniform(-1, 1, shape4).astype(np.float32))
+    pos = _random_positions(rng, n, shape4)
+    if kind != "unsorted":
+        pos = _sort_positions(pos, shape4)
+    if kind == "partial":
+        lanes = rng.choice(n, 50, replace=False)
+        pos["Y"][0][lanes] = rng.integers(0, 63, 50)
+        pos["X"][0][lanes] = rng.integers(0, 1023, 50)
+    tg = {ax: {"index": torch.as_tensor(i), "bcoord": torch.as_tensor(b)} for ax, (i, b) in pos.items()}
+    tg["active"] = torch.arange(n) < (n - 1) // tbs.CHUNK * tbs.CHUNK
+    return data, tg
+
+
+@pytest.mark.parametrize("kind", ["sorted", "partial", "unsorted"])
+def test_plain_equals_gather_bit_for_bit_on_every_lane_of_live_chunks(kind):
+    """K2's plain version equals ``_gather16`` bit for bit on every lane of
+    every live chunk, overflow lanes (a corner outside the window, read from
+    the field) among them; dead chunks give 0."""
+    data, tg = _overflow_inputs(kind)
+    plan = tbs._build_plan(tuple(data.shape), tg)
+    n = plan["n"]
+    assert int(plan["count"]) == int(plan["overflow"].sum()) > 0
+    live = plan["live"][torch.arange(n) // tbs.CHUNK] == 1
+    assert live.any() and not live.all()
+    vals = tbs.slab_sample_plain(data, plan)
+    ref = tbs._gather16(data, tbs._gather_lanes(tg))
+    assert torch.equal(vals[live], ref[live])
+    assert torch.all(vals[~live] == 0)
 
 
 def test_dead_chunks_write_zero():
@@ -232,6 +273,49 @@ def test_kernel_matches_plain_on_card():
     tg["active"] = torch.arange(n, device="cuda") < n - 3 * tbs.CHUNK
     plan = tbs._build_plan(shape4, tg)
     assert _same_bits(tbs.slab_sample(data, plan), tbs.slab_sample_plain(data, plan))
+
+
+def test_kernel_equals_gather_on_card():
+    """On the card, K2 alone equals ``_gather16`` bit for bit on every lane of
+    every live chunk of the scripted plans (bulk and scalar staging; corners
+    outside the window and outside the field) and of an unsorted plan, and
+    its copies are still only the windows' (``staged_bytes``); the sampler
+    makes no host read."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    rng = np.random.default_rng(4)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def live_lanes(plan):
+        return plan["live"][torch.arange(plan["n"], device="cuda") // tbs.CHUNK] == 1
+
+    for X in (520, 517):
+        plan = tbs.edge_plans(X, device="cuda")
+        data = torch.as_tensor(rng.uniform(-1, 1, (3, 12, 40, X)).astype(np.float32), device="cuda")
+        staged = torch.zeros(1, dtype=torch.int64, device="cuda")
+        got = tbs.slab_sample(data, plan, staged)
+        gidx = {ax: (i.to(torch.int64), b) for ax, i, b in zip("TZYX", plan["index"], plan["bcoord"])}
+        ref = tbs._gather16(data, gidx)
+        live = live_lanes(plan)
+        assert _same_bits(got[live], ref[live]), X
+        assert int(staged) == tbs.staged_bytes(plan, sms), X
+    data, tg = _overflow_inputs("unsorted")
+    data = data.cuda()
+    tg = {ax: {k: v.cuda() for k, v in d.items()} if isinstance(d, dict) else d.cuda()
+          for ax, d in tg.items()}
+    plan = tbs._build_plan(tuple(data.shape), tg)
+    live = live_lanes(plan)
+    ref = tbs._gather16(data, tbs._gather_lanes(tg))
+    assert _same_bits(tbs.slab_sample(data, plan)[live], ref[live])
+    tg["_sorted"] = True
+    torch.cuda.synchronize()
+    old = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = tbs.binned_linear_sample(data, tg)
+    finally:
+        torch.cuda.set_sync_debug_mode(old)
+    assert _same_bits(got[live], ref[live])
 
 
 # ---------------------------------------------------------------------------

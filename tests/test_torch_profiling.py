@@ -118,8 +118,8 @@ def _k2_fieldset():
 
 def test_host_reads_of_a_sorted_run_are_the_engine_loops():
     """6 RK4 steps in chunks of 4 and 2, one block: a loop condition a step
-    and one at each chunk's end, a Repeat check a step, one K2 plan read a
-    sample (4 a step), and the sort's seeding check."""
+    and one at each chunk's end, a Repeat check a step, and the sort's
+    seeding check; K2's plans (4 a step) read nothing back."""
     rng = np.random.default_rng(1)
     n = 300
     pset = tp.ParticleSet(_k2_fieldset(), x=rng.uniform(5e3, 2.1e6, n),
@@ -131,8 +131,8 @@ def test_host_reads_of_a_sorted_run_are_the_engine_loops():
     steps, chunks = 6, 2
     assert block_steps == steps
     assert reads == {**_execute_reads(chunks), "execute.indices": 1,
-                     "engine.loop": steps + chunks, "engine.repeat": steps,
-                     "k2.plan": 4 * steps}
+                     "engine.loop": steps + chunks, "engine.repeat": steps}
+    assert "k2.plan" not in reads
     lanes = pset._data["state"].shape[0]
     assert profiling.k2_lanes - lanes0 == 4 * steps * lanes
     assert 0 <= profiling.k2_overflow_lanes - over0 <= profiling.k2_lanes - lanes0
