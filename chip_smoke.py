@@ -57,7 +57,8 @@ counter is set to 0 just before a path runs and read just after):
    ``ParticleSet.execute(AdvectionRK4)`` at dt 600 s for 6 steps on the
    config-5 fieldset (curvilinear search, stage cache); K5 repairs every
    stage, its wrappers under ``torch.cuda.set_sync_debug_mode("error")``
-   (a host read there raises), launched once for each stage that repaired;
+   (a host read there raises), launched once for each stage that repaired,
+   and so are the stage's prologue and epilogue (``ops/cgrid_stage.py``);
 9. the K3 hit-and-repair stepper from the SoA cache of one engine step: one
    warm-up and 24 timed steps with the repair (each step under the sync
    debug mode "error"; K5 launched 4 times a step), 24 without, against
@@ -75,6 +76,11 @@ counter is set to 0 just before a path runs and read just after):
     every one of at least 3 rounds and a dead lane that moved as the last
     round's pad; with K5's times, bound (from the walk iterations and
     re-seeds the kernel counts), registers and the plain version's times;
+    then the stage's prologue and epilogue (``ops/cgrid_stage.py``) against
+    their plain versions bit for bit at (c)'s 2^21-lane block, a whole
+    steady stage timed between CUDA events as eager ops around K5 (the
+    plain prologue, K5, the plain epilogue) and as three calls, and each
+    kernel's time beside its bound (``stage_phase``);
 11. K4 (fused flat-mesh RK4 step) against its plain version at the JAX
     micro-benchmark's size, 10M lanes floored to 2048 (9,998,336): its
     unit cells mixed with lanes that reach every branch, NaN positions and
@@ -937,12 +943,14 @@ def k3_ab(torch, tp, parent_src):
 def _wrappers():
     from parcels_tpu_torch.ops import cgrid_repair  # K5 counts its calls in the module
     from parcels_tpu_torch.ops.binned_sample import slab_sample
+    from parcels_tpu_torch.ops.cgrid_stage import stage_epilogue, stage_prologue
     from parcels_tpu_torch.ops.flat_rk4 import flat_rk4_step
     from parcels_tpu_torch.ops.fused_rk4 import fused_rk4_step
     from parcels_tpu_torch.ops.interp_kernels import fold_sample
 
     return {"fold_sample": fold_sample, "slab_sample": slab_sample, "fused_rk4": fused_rk4_step,
-            "flat_rk4": flat_rk4_step, "cgrid_repair": cgrid_repair}
+            "flat_rk4": flat_rk4_step, "cgrid_repair": cgrid_repair,
+            "stage_prologue": stage_prologue, "stage_epilogue": stage_epilogue}
 
 
 def counts():
@@ -1015,13 +1023,15 @@ class no_host_reads:
 
 
 def k5_per_stage(what, launches, cc, n):
-    """K5 launched once for every full eval and every stage that repaired
-    (a stage checks one engine block of lanes)."""
+    """K5, the stage's prologue and its epilogue each launched once for
+    every full eval and every stage that repaired (a stage checks one engine
+    block of lanes). ``launches`` is ``counts()``."""
     from parcels_tpu_torch._core.engine import DEFAULT_BLOCK_SIZE
 
     stages = cc["full_evals"] + cc["checked_lanes"] // min(n, DEFAULT_BLOCK_SIZE)
-    if launches != stages or stages == 0:
-        raise AssertionError(f"{what}: K5 launched {launches} times for {stages} stages")
+    calls = {k: launches[k] for k in ("cgrid_repair", "stage_prologue", "stage_epilogue")}
+    if any(v != stages for v in calls.values()) or stages == 0:
+        raise AssertionError(f"{what}: launches {calls} for {stages} stages")
 
 
 #: the JAX package's config 5: global 1/12-degree-like MOi C-grid, (T, Z, Y, X)
@@ -1570,6 +1580,118 @@ def k5_phase(torch, tp, fs5, soa8, device="cuda"):
                 cold_repair_kernel_ms=res["cold_repair"]["kernel_ms"],
                 cold_repair_plain_ms=res["cold_repair"]["plain_ms"],
                 cold_repair_bound_ms=res["cold_repair"]["bound_ms"])
+
+
+#: bytes the prologue moves a lane: t, z, y, x read (16); ti, t1i, tau,
+#: zi_raw, zc, zeta, wzi, the escalation code, qX, qY, qZ (44) and the depth's
+#: out-of-bounds flag (1) written
+STAGE_PROLOGUE_BYTES = 16 + 44 + 1
+
+
+def stage_epilogue_bytes(has_w, ngrids):
+    """Bytes the epilogue moves a lane: the row's 9 geometry columns (36),
+    xsi, eta, tau, y (16), the U and V quads (32), the codes and flags
+    (esc_zt, esc, oob, z_oob: 10), zc, yi, xi (12), the mask (1), state and
+    ei read and written (8 + 8 ngrids), u and v written (8); with W also
+    zeta, its quad and w (24)."""
+    return 36 + 16 + 32 + 10 + 12 + 1 + 8 + 8 * ngrids + 8 + (24 if has_w else 0)
+
+
+def stage_phase(torch, tp, fs5, soa8):
+    """Phase 25's stage (ops/cgrid_stage.py) at (c)'s 2^21-lane engine block
+    (the next stage 1 after phase 8's six steps): the prologue and the
+    epilogue each against its plain version bit for bit on every output
+    (the brackets, codes and query coordinates; u, v, the new state and
+    ``ei``), the epilogue on K5's output of the same stage. Then a whole
+    steady stage between CUDA events, the eager composition (the
+    plain prologue, K5, the plain epilogue) against the three calls, each
+    from the same cache (restored untimed; the host's time to launch
+    included); each kernel's time back to back beside its bound and its
+    plain version's."""
+    from parcels_tpu_torch._core.engine import DEFAULT_BLOCK_SIZE
+    from parcels_tpu_torch._core.particles_view import Particles
+    from parcels_tpu_torch.ops import cgrid_repair as k5
+    from parcels_tpu_torch.ops import cgrid_stage as cs
+    from parcels_tpu_torch.ops import stagecache
+
+    vf = fs5.build_views(fs5.device_arrays()).UV
+    blk = {k: v[:DEFAULT_BLOCK_SIZE] for k, v in soa8.items() if torch.is_tensor(v)}
+    mask = soa8["_active"][:DEFAULT_BLOCK_SIZE]
+    c = stagecache._load_soa_cache(Particles(blk, mask), vf)
+    t, z, y, x = (blk[k] for k in ("t", "z", "y", "x"))
+    n = y.shape[0]
+    K = min(n, max(1024, n // stagecache.K_DIV))
+
+    def same(a, b, what):
+        ok = a == b
+        if a.is_floating_point():
+            ok = ok | (torch.isnan(a) & torch.isnan(b))
+        if not bool(ok.all()):
+            raise AssertionError(f"phase 25 stage: {what} differs from its plain version on "
+                                 f"{int((~ok).sum())} lanes")
+
+    got = cs.stage_prologue(vf, t, z, y, x)
+    want = cs.stage_prologue_plain(vf, t, z, y, x)
+    for name, g, w in zip(cs.Brackets._fields, got, want):
+        for k, (gk, wk) in enumerate(zip(g, w) if name == "q" else [(g, w)]):
+            same(gk, wk, f"prologue {name}{k if name == 'q' else ''}")
+    ck = {k: (v.clone() if v is not None else None) for k, v in c.items()}
+    st = k5.cgrid_stage(vf, ck, y, x, got.q, got.ti, got.t1i, got.zc, got.wzi, mask, K)
+    pk, pp = ({"state": blk["state"].clone(), "ei": blk["ei"].clone()} for _ in range(2))
+    ue = cs.stage_epilogue(vf, ck, st.xsi, st.eta, got, y, Particles(pk, mask))
+    up = cs.stage_epilogue_plain(vf, ck, st.xsi, st.eta, got, y, Particles(pp, mask))
+    for name, g, w in zip("uvw", ue, up):
+        same(g, w, f"epilogue {name}")
+    same(pk["state"], pp["state"], "epilogue state")
+    same(pk["ei"], pp["ei"], "epilogue ei")
+    misses = int(st.cnt)
+    del got, want, ue, up, st
+
+    def restore():
+        for key, v in c.items():
+            if v is not None:
+                ck[key].copy_(v)
+
+    def eager():
+        b = cs.stage_prologue_plain(vf, t, z, y, x)
+        s = k5.cgrid_stage(vf, ck, y, x, b.q, b.ti, b.t1i, b.zc, b.wzi, mask, K)
+        return cs.stage_epilogue_plain(vf, ck, s.xsi, s.eta, b, y, Particles(pp, mask))
+
+    def three():
+        b = cs.stage_prologue(vf, t, z, y, x)
+        s = k5.cgrid_stage(vf, ck, y, x, b.q, b.ti, b.t1i, b.zc, b.wzi, mask, K)
+        return cs.stage_epilogue(vf, ck, s.xsi, s.eta, b, y, Particles(pk, mask))
+
+    res = dict(n=n, misses=misses)
+    res["stage_eager_ms"] = event_ms(torch, eager, restore)
+    res["stage_three_calls_ms"] = event_ms(torch, three, restore)
+    res["stage_eager_ms_2"] = event_ms(torch, eager, restore)
+    res["stage_three_calls_ms_2"] = event_ms(torch, three, restore)
+    b = cs.stage_prologue(vf, t, z, y, x)
+    restore()
+    s = k5.cgrid_stage(vf, ck, y, x, b.q, b.ti, b.t1i, b.zc, b.wzi, mask, K)
+    res["prologue_ms"] = cuda_ms(torch, lambda: cs.stage_prologue(vf, t, z, y, x))
+    res["prologue_queued_ms"] = cuda_ms(torch, lambda: cs.stage_prologue(vf, t, z, y, x),
+                                        queued=True)
+    res["prologue_plain_ms"] = cuda_ms(torch, lambda: cs.stage_prologue_plain(vf, t, z, y, x))
+    res["prologue_bound_ms"], _ = bound(n * STAGE_PROLOGUE_BYTES, 0)
+
+    def epi(fn, pd):
+        return lambda: fn(vf, ck, s.xsi, s.eta, b, y, Particles(pd, mask))
+
+    res["epilogue_ms"] = cuda_ms(torch, epi(cs.stage_epilogue, pk))
+    res["epilogue_queued_ms"] = cuda_ms(torch, epi(cs.stage_epilogue, pk), queued=True)
+    res["epilogue_plain_ms"] = cuda_ms(torch, epi(cs.stage_epilogue_plain, pp))
+    res["epilogue_bound_ms"], _ = bound(
+        n * stage_epilogue_bytes(c["w4"] is not None, blk["ei"].shape[1]), 0)
+    del b, s, ck, c
+    torch.cuda.empty_cache()
+    log(f"[stage] the prologue and the epilogue bit for bit against their plain versions at "
+        f"(c)'s {n}-lane block ({misses} misses in K5 between them); a steady stage, "
+        f"the eager composition against the three calls, between CUDA events: "
+        f"{json.dumps(res)}; ptxas: {ptxas_lines('cgrid_stage')}")
+    return dict(max_abs_err=0.0, ms=res["epilogue_ms"], plain_ms=res["epilogue_plain_ms"],
+                bound_ms=res["epilogue_bound_ms"], bound_by="bytes", library_ms=None, **res)
 
 
 def compare_runs(a, b, tol):
@@ -4325,14 +4447,14 @@ def main() -> int:
     with no_host_reads(torch):
         p8 = run_cgrid(tp, fs5, seeds5, 1)
     l8a, c8a, s8a = counts(), cache_counts(), p8.last_run_stats
-    k5_per_stage("phase 8 step 1", l8a["cgrid_repair"], c8a, CONFIG5_LANES)
+    k5_per_stage("phase 8 step 1", l8a, c8a, CONFIG5_LANES)
     zero_counts()
     zero_cache_counts()
     with no_host_reads(torch):
         p8.execute(tp.AdvectionRK4, dt=np.timedelta64(600, "s"),
                    runtime=np.timedelta64(3000, "s"))
     l8, c8b, s8b = counts(), cache_counts(), p8.last_run_stats
-    k5_per_stage("phase 8 steps 2-6", l8["cgrid_repair"], c8b, CONFIG5_LANES)
+    k5_per_stage("phase 8 steps 2-6", l8, c8b, CONFIG5_LANES)
     if not (np.isfinite(p8.x).all() and np.isfinite(p8.y).all()) or int(
             (p8.state >= tp.StatusCode.Error).sum()):
         raise AssertionError("C-grid path: non-finite positions or error states after 6 steps")
@@ -4413,6 +4535,7 @@ def main() -> int:
     # 25: K5 against its plain version at (c)'s cold lanes, on the next stage
     # of phase 8's SoA, on the rotated flat grid and on non-finite lanes
     k5 = k5_phase(torch, tp, fs5, soa8)
+    stage = stage_phase(torch, tp, fs5, soa8)
     del fs5, soa8
     torch.cuda.empty_cache()
     mark(t_start, "phase 25")
@@ -4518,6 +4641,15 @@ def main() -> int:
              launches_by_path={"e2e_cgrid_step_1": l8a["cgrid_repair"],
                                "e2e_cgrid_steps_2_6": l8["cgrid_repair"],
                                "k3_path": k9["k5_launches"]}, **k5),
+        # no Pallas counterpart: the stage's prologue and epilogue replace
+        # the JAX package's eager brackets and blend around its repair loop
+        dict(name="cgrid_stage", route="cuda", source="parcels_tpu_torch/csrc/cgrid_stage.cu",
+             replaces="parcels_tpu/ops/stagecache.py:cgrid_cached_eval",
+             launches=l8a["stage_prologue"] + l8["stage_prologue"]
+             + l8a["stage_epilogue"] + l8["stage_epilogue"],
+             launches_by_path={"e2e_cgrid_step_1": l8a["stage_prologue"] + l8a["stage_epilogue"],
+                               "e2e_cgrid_steps_2_6": l8["stage_prologue"]
+                               + l8["stage_epilogue"]}, **stage),
     ]
     log(json.dumps({"kernels": kernels}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -58,6 +58,11 @@ KERNEL_SOURCES = {
         "cgrid_repair_launch",
         [_P, _P],
     ),
+    "cgrid_stage": (
+        "cgrid_stage.cu",
+        "cgrid_stage_launch",
+        [_I, _P, _P],
+    ),
 }
 
 _LOADED: dict = {}

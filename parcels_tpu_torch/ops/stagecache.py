@@ -36,7 +36,6 @@ import torch
 
 from parcels_tpu_torch import profiling
 from parcels_tpu_torch._core import index_search
-from parcels_tpu_torch._core.statuscodes import StatusCode
 
 __all__ = ["cgrid_cached_eval", "enabled", "flush", "prebuild_tables", "reset", "table_bytes"]
 
@@ -132,8 +131,10 @@ def attach_derived_tables(fieldset, farrays) -> None:
 def prebuild_tables(fsview) -> None:
     """Materialize the fused cell tables, and the UGRID corner-column tables
     of the tier in use, before the step loop (engine: right after
-    build_views)."""
-    from parcels_tpu_torch.ops import uxcache, uxcol
+    build_views). On the card the stage's two libraries (K5's and the
+    prologue's and epilogue's) build here, in parallel, where one is
+    missing."""
+    from parcels_tpu_torch.ops import _build, uxcache, uxcol
 
     for v in fsview.fields.values():
         is_vector = hasattr(v, "_stage_cache")
@@ -149,6 +150,8 @@ def prebuild_tables(fsview) -> None:
                 uxcol.ux_col_table(comp)
         if is_vector and enabled(v):
             cell_table(v)
+            if v.U.data.device.type == "cuda":
+                _build.build_all(["cgrid_repair", "cgrid_stage"])
 
 
 def table_bytes(fieldset) -> dict:
@@ -435,36 +438,22 @@ def cgrid_cached_eval(vf, t, z, y, x, particles):
     The JAX package runs a stage as XLA ops on its device: the hit check,
     a ``while_loop`` over rounds of K compacted misses whose search holds
     the curvilinear walk's early-exit ``while_loop``, and (xsi, eta) from
-    the cached rows. Here one call does all of it: K5
-    (``cgrid_repair.cgrid_stage``) on the card, its plain version on the
-    CPU; a kernel call's first eval is one ``cgrid_full``. On the card a
-    stage's time is bounded by the check's read of every lane's cached row
-    and keys (121 bytes a lane) and the misses' scattered row and field
-    reads; the kernel moves them in 16-byte vectors and searches only its
-    work list, and nothing is read back to the host.
+    the cached rows. Here a stage is three calls, each on every lane: the
+    prologue (``cgrid_stage.stage_prologue``: the time and depth brackets,
+    their escalation codes, the query coordinates), K5
+    (``cgrid_repair.cgrid_stage``, or one ``cgrid_full`` for a kernel
+    call's first eval: the hit check, the repair of every round and every
+    lane's (xsi, eta)) and the epilogue (``cgrid_stage.stage_epilogue``:
+    the C-grid blend, the state's escalations, the ``ei`` refresh, the
+    zeroed out-of-bounds samples). On the card each is a hand-written
+    kernel and nothing is read back to the host; on the CPU their plain
+    versions run.
     """
-    from parcels_tpu_torch._core.field import _escalate
-    from parcels_tpu_torch.ops import cgrid_repair
+    from parcels_tpu_torch.ops import cgrid_repair, cgrid_stage
 
     with profiling.span("parcels.cgrid.stage"):
-        grid = vf.grid
-        spec = grid.spec
-        i32 = dict(dtype=torch.int32, device=y.device)
-        ti, t1i, tau, t_oob, zi_raw, zc, zeta, wzi, Zw = stage_brackets(vf, t, z)
-
-        # escalations independent of the X/Y search (field._update_state_position)
-        esc_zt = torch.maximum(
-            torch.where(zi_raw == index_search.RIGHT_OUT_OF_BOUNDS,
-                        int(StatusCode.ErrorOutOfBounds), 0),
-            torch.where(zi_raw == index_search.LEFT_OUT_OF_BOUNDS,
-                        int(StatusCode.ErrorThroughSurface), 0),
-        )
-        if t_oob is not None:
-            esc_zt = torch.maximum(
-                esc_zt, torch.where(t_oob, int(StatusCode.ErrorOutsideTimeInterval), 0)
-            )
-        esc_zt = esc_zt.to(torch.int32)
-        z_oob = zi_raw < 0
+        spec = vf.grid.spec
+        b = cgrid_stage.stage_prologue(vf, t, z, y, x)
 
         c = vf._stage_cache
         n = y.shape[0]
@@ -472,7 +461,6 @@ def cgrid_cached_eval(vf, t, z, y, x, particles):
             # cross-step persistence: stage 1 starts from the last step's cache
             c = _load_soa_cache(particles, vf)
 
-        q = index_search.query_xyz(y, x, spec.spherical)
         if c is None:
             # first eval of this kernel invocation: full batch
             cgrid_cached_eval.full_evals += 1
@@ -482,14 +470,14 @@ def cgrid_cached_eval(vf, t, z, y, x, particles):
                 xi_g = ei % cx
                 yi_g = torch.div(ei, cx, rounding_mode="floor") % cy
             else:
-                yi_g = torch.zeros(y.shape, **i32)
-                xi_g = torch.zeros(x.shape, **i32)
+                yi_g = torch.zeros(y.shape, dtype=torch.int32, device=y.device)
+                xi_g = torch.zeros(x.shape, dtype=torch.int32, device=x.device)
             # K5 on the card (its plain version on the CPU): one call, every lane
-            c = cgrid_repair.cgrid_full(vf, y, x, q, ti, t1i, zc, wzi, yi_g, xi_g)
+            c = cgrid_repair.cgrid_full(vf, y, x, b.q, b.ti, b.t1i, b.zc, b.wzi, yi_g, xi_g)
             xsi, eta = c.pop("xsi"), c.pop("eta")
-            c["ti"] = ti
-            c["zi"] = zc
-            c["wzi"] = wzi
+            c["ti"] = b.ti
+            c["zi"] = b.zc
+            c["wzi"] = b.wzi
             if particles is not None:
                 # only engine-driven evals cache (a host-side fieldset.eval has
                 # no kernel-call boundary to reset it)
@@ -502,31 +490,14 @@ def cgrid_cached_eval(vf, t, z, y, x, particles):
             # and repairs every round and the counts stay device tensors, on the
             # CPU the plain loop reads the misses once
             mask = particles._mask if particles is not None else None
-            st = cgrid_repair.cgrid_stage(vf, c, y, x, q, ti, t1i, zc, wzi, mask, K)
+            st = cgrid_repair.cgrid_stage(vf, c, y, x, b.q, b.ti, b.t1i, b.zc, b.wzi, mask, K)
             xsi, eta = st.xsi, st.eta
             cgrid_cached_eval.checked_lanes += n
             cgrid_cached_eval.misses = cgrid_cached_eval.misses + st.cnt
             cgrid_cached_eval.miss_rounds = cgrid_cached_eval.miss_rounds + st.rounds
             vf._stage_cache = c
 
-        u, v, w = _blend(spec, c["row"], xsi, eta, tau, zeta, c["u4"], c["v4"], c["w4"], Zw, y)
-
-        if particles is not None:
-            particles.state = torch.maximum(particles.state, torch.maximum(esc_zt, c["esc"]))
-            _escalate(particles, torch.isnan(u) | torch.isnan(v) | torch.isnan(w),
-                      StatusCode.ErrorInterpolation)
-            # refresh the warm-start ei cache (field._update_particles_ei)
-            ydim, xdim = max(spec.ydim, 1), max(spec.xdim, 1)
-            particles._set_ei(vf.igrid, (zc * ydim + c["yi"]) * xdim + c["xi"])
-
-        # out-of-bounds samples return 0 (reference field.py:359-370)
-        mask0 = c["oob"] | z_oob
-        u = torch.where(mask0, 0.0, u)
-        v = torch.where(mask0, 0.0, v)
-        w = torch.where(mask0, 0.0, w)
-        if vf.vector_type == "3D":
-            return (u, v, w)
-        return (u, v)
+        return cgrid_stage.stage_epilogue(vf, c, xsi, eta, b, y, particles)
 
 
 #: counters, read by chip_smoke.py: full-batch evals, miss repair rounds,

@@ -43,7 +43,9 @@ sys.path[:0] = [str(ROOT), str(ROOT / "portbench")]
 
 #: device kernels and the span each must be launched in
 LAUNCHED_IN = {"slab_sample_kernel": "parcels.k2.kernel",
-               "check_kernel": "parcels.cgrid.stage", "search_kernel": "parcels.cgrid.stage"}
+               "check_kernel": "parcels.cgrid.stage", "search_kernel": "parcels.cgrid.stage",
+               "stage_prologue_kernel": "parcels.cgrid.stage",
+               "stage_epilogue_kernel": "parcels.cgrid.stage"}
 OUTSIDE = "outside any parcels span"
 
 
@@ -93,13 +95,19 @@ def sync_sites(torch, run, pset, piece):
     return sum(sites.values()), delta, dict(sites.most_common())
 
 
+def program_spans(ctx):
+    """The program's ``parcels.*`` spans (name, start, end), in start order,
+    an enclosing span before the spans it holds."""
+    return sorted((h for h in ctx.host if h[0].startswith("parcels.")),
+                  key=lambda s: (s[1], -s[2]))
+
+
 def breakdown(ctx, steps):
     """Per span name: calls and, a set step, host ms (whole, self), launches
     and synchronizing transfers (self and whole) and idle ms (self)."""
     from harness import spans as hs
 
-    spans = sorted((h for h in ctx.host if h[0].startswith("parcels.")),
-                   key=lambda s: (s[1], -s[2]))
+    spans = program_spans(ctx)
     # the parent of a span: the innermost span opened before it and still open
     parent, stack = [], []
     for k, (_, a, b) in enumerate(spans):
@@ -171,6 +179,38 @@ def launched_in(torch, ctx):
     return out
 
 
+def device_ops_by_span(torch, ctx, top=6):
+    """For each span name: the device seconds of the ops launched with it
+    as the innermost span, the ``top`` longest by op name (each device
+    event found by its host launch's correlation id)."""
+    from harness import spans as hs
+    from harness.tracing import _ns
+
+    events = list(ctx.prof.profiler.kineto_results.events())
+    cpu = torch.autograd.DeviceType.CPU
+    host_launch = {e.correlation_id(): _ns(e, "start") for e in events
+                   if e.device_type() == cpu and e.name().startswith(hs.LAUNCH)}
+    s0, s1 = ctx.span
+    annotations = {h[0] for h in ctx.host}  # mirrored onto the device timeline
+    dev = []
+    for e in events:
+        if e.device_type() == cpu or e.name() in annotations:
+            continue
+        a = _ns(e, "start")
+        b = a + _ns(e, "duration")
+        t = next((host_launch[i] for i in (e.correlation_id(), e.linked_correlation_id())
+                  if i in host_launch), None)
+        if t is not None and b > s0 and a < s1:
+            dev.append((e.name(), (min(b, s1) - max(a, s0)) / 1e9, t))
+    spans = program_spans(ctx)
+    acc = collections.defaultdict(collections.Counter)
+    for (name, sec, _), k in zip(dev, innermost(spans, [d[2] for d in dev])):
+        acc[spans[k][0] if k is not None else OUTSIDE][name] += sec
+    return {span: {"device_s": sum(ops.values()),
+                   "top": [[n, s] for n, s in ops.most_common(top)]}
+            for span, ops in sorted(acc.items(), key=lambda kv: -sum(kv[1].values()))}
+
+
 def span_cost(torch):
     """Microseconds of ``with span(...)`` and ``with sync(...)`` with no
     profiler recording, and of ``with span(...)`` while one records."""
@@ -237,6 +277,7 @@ def main(argv=None):
                    "set_steps": steps, "piece_steps": ctx.steps, "counters": ctx.counters},
         "metrics": {m["name"]: mods[m["name"]].read(ctx) for m in entries},
         "launched_in_span": launched_in(torch, ctx),
+        "device_ops_by_span": device_ops_by_span(torch, ctx),
         "longest_idle_gaps": gaps,
         "span_cost": {**cost, "spans_per_step": n_spans / steps,
                       "off_us_per_step": n_spans / steps * cost["span_us"],

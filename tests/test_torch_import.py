@@ -19,7 +19,7 @@ def test_import_leaves_jax_out():
         "import sys; import parcels_tpu_torch, parcels_tpu_torch.datasets; "
         "import parcels_tpu_torch.ops.binned_sample, parcels_tpu_torch.ops._build; "
         "import parcels_tpu_torch.ops.stagecache, parcels_tpu_torch.ops.fused_rk4; "
-        "import parcels_tpu_torch.ops.cgrid_repair; "
+        "import parcels_tpu_torch.ops.cgrid_repair, parcels_tpu_torch.ops.cgrid_stage; "
         "import parcels_tpu_torch.convert, parcels_tpu_torch.datasets.moi; "
         "import parcels_tpu_torch.ops.uxcol, parcels_tpu_torch.ops.uxcache; "
         "import parcels_tpu_torch._core.uxgrid, parcels_tpu_torch.native; "

@@ -6,15 +6,18 @@ equals the port with it off at the JAX package's own tolerance (rtol 1e-6,
 atol 1e-5, tests/test_stagecache.py), and trajectories through the cache
 agree with JAX's within 1e-4 deg with identical final states.
 ``PARCELS_TPU_STAGECACHE`` is set for both packages by monkeypatch.
+
+The stage's prologue and epilogue (``ops/cgrid_stage.py``) are held to the
+eager stage they replace on the CPU and, on a card, to their plain versions
+bit for bit. The JAX package is imported only inside the test that runs it, so
+a card's machine without JAX imports this module and calls the card cases.
 """
 
 import numpy as np
 import pytest
 import torch
 
-import parcels_tpu as jp
 import parcels_tpu_torch as tp
-from parcels_tpu.datasets import moi_like_fieldset as j_moi
 from parcels_tpu_torch.datasets import moi_like_fieldset as t_moi
 from parcels_tpu_torch.ops import stagecache
 
@@ -57,6 +60,9 @@ def test_stagecache_matches_plain_2d(monkeypatch, dt_s):
     np.testing.assert_array_equal(got[3], ref[3])
     if dt_s == 21600:
         # JAX through its own stage cache, on the same inputs
+        import parcels_tpu as jp
+        from parcels_tpu.datasets import moi_like_fieldset as j_moi
+
         monkeypatch.setenv("PARCELS_TPU_STAGECACHE", "force")
         jref = _run(jp, j_moi(xdim=96, ydim=64, zdim=3, seed=2), "AdvectionRK4", x, y,
                     dt_s=dt_s, runtime_s=runtime_s)
@@ -220,3 +226,252 @@ def test_miss_repair_rounds_and_last_lane(monkeypatch, last_lane_misses):
     assert torch.equal(pd["ei"], pd2["ei"]) and torch.equal(pd["state"], pd2["state"])
     for k in ("cell", "u4", "v4", "row"):
         assert torch.equal(vf._stage_cache[k], vf2._stage_cache[k]), k
+
+
+# ---------------------------------------------------------------------------
+# the stage's prologue and epilogue (ops/cgrid_stage.py): the plain versions
+# on the CPU against the eager composition they replace, and on a card the
+# kernels against the plain versions, bit for bit
+# ---------------------------------------------------------------------------
+
+DEVICES = ["cpu", "cuda"]
+DEPTHS = ["uniform", "nemo50", "long200", "one", "none"]
+TIMES = ["static", "two", "three_uniform", "three_stretched"]
+
+
+def _need_card(device):
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+
+
+def _same_bits(a, b):
+    """Equal bit for bit; NaN lanes NaN in both (their payloads not compared)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    same = (a.view(torch.int32) == b.view(torch.int32)) | (torch.isnan(a) & torch.isnan(b))
+    return bool(same.all())
+
+
+def _axis_view(depth, time, device, has_w, spherical):
+    """A stand-in vector-field view with the given depth and time axes: what
+    the prologue reads of a view (spec, axes, the U and W shapes)."""
+    from types import SimpleNamespace
+
+    from parcels_tpu_torch._core.grid import _uniform_spacing
+    from parcels_tpu_torch.datasets.moi import _stretched_depth
+
+    nodes = {"uniform": np.arange(6) * 10.0, "nemo50": _stretched_depth(50),
+             "long200": _stretched_depth(200), "one": np.array([5.0]), "none": np.zeros(1)}[depth]
+    frames = {"static": np.zeros(1), "two": np.array([0.0, 86400.0]),
+              "three_uniform": np.array([0.0, 86400.0, 172800.0]),
+              "three_stretched": np.array([0.0, 3600.0, 86400.0])}[time]
+    spec = SimpleNamespace(
+        axes=("Y", "X") if depth == "none" else ("Z", "Y", "X"), spherical=spherical,
+        depth_uniform=_uniform_spacing(nodes), time_uniform=_uniform_spacing(frames),
+        offset_z=1 if has_w else 0)
+    garrs = {"depth": torch.as_tensor(nodes.astype(np.float32), device=device),
+             "time": torch.as_tensor(frames.astype(np.float32), device=device)}
+
+    def field(levels):
+        return SimpleNamespace(data=SimpleNamespace(shape=(frames.size, levels, 4, 4)),
+                               has_time=frames.size > 1)
+
+    Z = nodes.size if depth != "none" else 1
+    return SimpleNamespace(grid=SimpleNamespace(spec=spec, garrs=garrs), U=field(Z),
+                           W=field(Z) if has_w else None), nodes, frames
+
+
+def _prologue_lanes(nodes, frames, device, n=4096, seed=5):
+    """t, z, y, x: random lanes with every node and frame exactly, lanes
+    below the first and above the last, t outside the interval, and NaN in
+    each of t, z, y and x."""
+    rng = np.random.default_rng(seed)
+    zmax, tmax = max(nodes[-1], 1.0), max(frames[-1], 3600.0)
+    z = rng.uniform(-0.1 * zmax, 1.1 * zmax, n)
+    t = rng.uniform(-0.2 * tmax, 1.2 * tmax, n)
+    z[:nodes.size] = nodes
+    t[:frames.size] = frames
+    z[nodes.size:nodes.size + 3] = [nodes[0] - 1.0, nodes[-1] + 1.0, -0.0]
+    t[frames.size:frames.size + 2] = [frames[0] - 60.0, frames[-1] + 60.0]
+    y, x = rng.uniform(-80, 80, n), rng.uniform(-180, 180, n)
+    for v, k in ((t, 97), (z, 89), (y, 83), (x, 79)):
+        v[256 + k::211] = np.nan
+    return tuple(torch.as_tensor(v.astype(np.float32), device=device) for v in (t, z, y, x))
+
+
+def _eager_prologue(vf, t, z, y, x):
+    """The eager brackets, escalation codes and query coordinates the
+    prologue replaces, composed from stage_brackets and query_xyz."""
+    from parcels_tpu_torch._core import index_search
+    from parcels_tpu_torch._core.statuscodes import StatusCode
+
+    ti, t1i, tau, t_oob, zi_raw, zc, zeta, wzi, _ = stagecache.stage_brackets(vf, t, z)
+    esc_zt = torch.maximum(
+        torch.where(zi_raw == index_search.RIGHT_OUT_OF_BOUNDS, int(StatusCode.ErrorOutOfBounds), 0),
+        torch.where(zi_raw == index_search.LEFT_OUT_OF_BOUNDS, int(StatusCode.ErrorThroughSurface), 0),
+    )
+    if t_oob is not None:
+        esc_zt = torch.maximum(esc_zt, torch.where(t_oob, int(StatusCode.ErrorOutsideTimeInterval), 0))
+    q = index_search.query_xyz(y, x, vf.grid.spec.spherical)
+    return (ti, t1i, tau, zi_raw, zc, zeta, wzi, esc_zt.to(torch.int32), zi_raw < 0, q)
+
+
+@pytest.mark.parametrize("device", DEVICES)
+@pytest.mark.parametrize("time", TIMES)
+@pytest.mark.parametrize("depth", DEPTHS)
+def test_stage_prologue_brackets(depth, time, device):
+    """The prologue's brackets, codes and query coordinates: on the CPU its
+    plain version against the eager ops it replaces, on a card the kernel
+    against the plain version, bit for bit; uniform and stretched axes, an
+    axis longer than 128 nodes, one level, one to three frames, lanes on
+    the nodes, outside them and NaN in each of t, z, y, x."""
+    from parcels_tpu_torch.ops import cgrid_stage
+
+    _need_card(device)
+    case = DEPTHS.index(depth) + len(DEPTHS) * TIMES.index(time)
+    vf, nodes, frames = _axis_view(depth, time, device, has_w=case % 2 == 0,
+                                   spherical=case % 3 != 0)
+    lanes = _prologue_lanes(nodes, frames, device)
+    launches = cgrid_stage.stage_prologue.launches
+    got = cgrid_stage.stage_prologue(vf, *lanes)
+    want = (_eager_prologue(vf, *lanes) if device == "cpu"
+            else cgrid_stage.stage_prologue_plain(vf, *lanes))
+    assert cgrid_stage.stage_prologue.launches - launches == (device == "cuda")
+    for name, g, w in zip(cgrid_stage.Brackets._fields, got, want):
+        for k, (gk, wk) in enumerate(zip(g, w) if name == "q" else [(g, w)]):
+            assert _same_bits(gk, wk), (name, k)
+    zi_raw = got.zi_raw.cpu().numpy()
+    if depth in ("uniform", "nemo50", "long200"):
+        # the nodes bracket their own cells, outside lanes take the sentinels
+        np.testing.assert_array_equal(zi_raw[:nodes.size - 1], np.arange(nodes.size - 1))
+        assert list(zi_raw[nodes.size:nodes.size + 2]) == [-2, -1]
+
+
+def _stage_fixture(grid, device):
+    """A fieldset of the existing fixtures and its C-grid view name: the
+    MOi-like spherical grid, 2-D or with W, and the rotated flat grid."""
+    if grid == "rotated":
+        from parcels_tpu_torch._core.field import VectorField
+        from parcels_tpu_torch.datasets import curvilinear_rotated_dataset
+
+        fs = tp.FieldSet.from_sgrid_conventions(curvilinear_rotated_dataset(xdim=50, ydim=40),
+                                                mesh="flat", device=device)
+        fs.add_field(VectorField("UVc", fs.U, fs.V, interp_method=tp.CGrid_Velocity()))
+        return fs, "UVc"
+    fs = t_moi(xdim=96, ydim=64, zdim=6 if grid == "moi3d" else 3, seed=3,
+               with_w=grid == "moi3d", device=device)
+    return fs, "UVW" if grid == "moi3d" else "UV"
+
+
+def _stage_lanes(fs, grid, device, n=4096, seed=9):
+    """A first eval's lanes and the next stage's (a third of them moved a
+    cell or two), with masked, NaN, infinite and out-of-bounds lanes."""
+    rng = np.random.default_rng(seed)
+    if grid == "rotated":
+        g = fs.gridset[0]
+        x = rng.uniform(g.lon.min(), g.lon.max(), n)
+        y = rng.uniform(g.lat.min(), g.lat.max(), n)
+        step = 1500.0
+    else:
+        x, y = rng.uniform(-170, 170, n), rng.uniform(-60, 70, n)
+        step = 5.0
+    z = rng.uniform(1.0, 900.0, n) if grid == "moi3d" else np.full(n, 1.0)
+    z[::101] = -5.0  # through the surface
+    z[1::103] = 9000.0  # below the deepest level
+    t = rng.uniform(0.0, 86400.0, n)
+    t[::107] = 2e5  # outside the time interval
+    moved = rng.random(n) < 0.33
+    x2 = np.where(moved, x + rng.choice([-1.0, 1.0], n) * rng.uniform(0.3, 1.2, n) * step, x)
+    y2 = np.where(moved, y + rng.choice([-1.0, 1.0], n) * rng.uniform(0.3, 1.2, n) * step, y)
+    y2[::97] = np.nan
+    x2[::89] = np.inf
+    mask = rng.random(n) < 0.85
+    T = lambda v: torch.as_tensor(np.asarray(v, dtype=np.float32), device=device)  # noqa: E731
+    return (T(t), T(z), T(y), T(x)), (T(t + 300.0), T(z), T(y2), T(x2)), torch.as_tensor(
+        mask, device=device)
+
+
+def _eager_eval(vf, t, z, y, x, particles):
+    """The stage as eager ops around K5, as cgrid_cached_eval ran it before
+    its prologue and epilogue kernels."""
+    from parcels_tpu_torch._core.field import _escalate
+    from parcels_tpu_torch._core.statuscodes import StatusCode
+    from parcels_tpu_torch.ops import cgrid_repair
+
+    spec = vf.grid.spec
+    ti, t1i, tau, zi_raw, zc, zeta, wzi, esc_zt, z_oob, q = _eager_prologue(vf, t, z, y, x)
+    Zw = vf.W.data.shape[1] if vf.W is not None else 1
+    c = vf._stage_cache
+    if c is None:
+        cx = max(spec.xdim, 1)
+        ei = particles._get_ei(vf.igrid)
+        c = cgrid_repair.cgrid_full(vf, y, x, q, ti, t1i, zc, wzi,
+                                    torch.div(ei, cx, rounding_mode="floor") % max(spec.ydim, 1),
+                                    ei % cx)
+        xsi, eta = c.pop("xsi"), c.pop("eta")
+        c.update(ti=ti, zi=zc, wzi=wzi)
+    else:
+        c = dict(c)
+        n = y.shape[0]
+        st = cgrid_repair.cgrid_stage(vf, c, y, x, q, ti, t1i, zc, wzi, particles._mask,
+                                      min(n, max(1024, n // stagecache.K_DIV)))
+        xsi, eta = st.xsi, st.eta
+    vf._stage_cache = c
+    u, v, w = stagecache._blend(spec, c["row"], xsi, eta, tau, zeta, c["u4"], c["v4"], c["w4"],
+                                Zw, y)
+    particles.state = torch.maximum(particles.state, torch.maximum(esc_zt, c["esc"]))
+    _escalate(particles, torch.isnan(u) | torch.isnan(v) | torch.isnan(w),
+              StatusCode.ErrorInterpolation)
+    particles._set_ei(vf.igrid, (zc * max(spec.ydim, 1) + c["yi"]) * max(spec.xdim, 1) + c["xi"])
+    mask0 = c["oob"] | z_oob
+    out = tuple(torch.where(mask0, 0.0, a) for a in (u, v, w))
+    return out if vf.vector_type == "3D" else out[:2]
+
+
+@pytest.mark.parametrize("device", DEVICES)
+@pytest.mark.parametrize("grid", ["moi2d", "moi3d", "rotated"])
+def test_cgrid_cached_eval_equals_the_eager_stage(monkeypatch, grid, device):
+    """``cgrid_cached_eval`` (prologue, K5, epilogue) against the eager
+    stage on the same lanes, a first full eval and then a steady stage:
+    velocities, particle state, ``ei`` and the cache columns bit for bit,
+    with masked, NaN, infinite, through-surface, too deep and out-of-time
+    lanes; 2-D and 3-D (W), spherical and flat. On a card each wrapper
+    launches once a stage."""
+    from parcels_tpu_torch._core.particles_view import Particles
+    from parcels_tpu_torch.ops import cgrid_stage
+
+    _need_card(device)
+    monkeypatch.setenv("PARCELS_TPU_STAGECACHE", "force")
+    fs, name = _stage_fixture(grid, device)
+    first, second, mask = _stage_lanes(fs, grid, device)
+    n = mask.shape[0]
+    views = [getattr(fs.build_views(fs.device_arrays()), name) for _ in range(2)]
+    assert stagecache.enabled(views[0])
+    pds = [{"state": torch.zeros(n, dtype=torch.int32, device=device),
+            "ei": torch.zeros((n, len(fs.gridset)), dtype=torch.int32, device=device)}
+           for _ in range(2)]
+    for lanes in (first, second):
+        before = (cgrid_stage.stage_prologue.launches, cgrid_stage.stage_epilogue.launches)
+        got = stagecache.cgrid_cached_eval(views[0], *lanes, Particles(pds[0], mask))
+        after = (cgrid_stage.stage_prologue.launches, cgrid_stage.stage_epilogue.launches)
+        assert [b - a for a, b in zip(before, after)] == [int(device == "cuda")] * 2
+        want = _eager_eval(views[1], *lanes, Particles(pds[1], mask))
+        assert len(got) == len(want) == (3 if grid == "moi3d" else 2)
+        for k, (g, w) in enumerate(zip(got, want)):
+            assert _same_bits(g, w), "uvw"[k]
+        for key in ("state", "ei"):
+            assert _same_bits(pds[0][key], pds[1][key]), key
+        c0, c1 = views[0]._stage_cache, views[1]._stage_cache
+        assert sorted(c0) == sorted(c1)
+        for key, v in c1.items():
+            assert (v is None and c0[key] is None) or _same_bits(c0[key], v), key
+    states = pds[0]["state"].cpu().numpy()
+    # the fixture reaches the escalations of its axes (the rotated grid has
+    # no depth or time axis)
+    codes = {tp.StatusCode.ErrorOutOfBounds}
+    if grid != "rotated":
+        codes |= {tp.StatusCode.ErrorOutsideTimeInterval, tp.StatusCode.ErrorThroughSurface}
+    assert {int(c) for c in codes} <= set(states.tolist())
+    assert (states[~mask.cpu().numpy()] == 0).all()
