@@ -480,6 +480,21 @@ def ptxas_lines(name):
     return out
 
 
+def k2_counted(torch, data, plan, what):
+    """K2's values and plain version's values at ``plan``, and the lanes K2
+    counted as read partly from the field, held equal to its plain
+    version's count."""
+    from parcels_tpu_torch.ops import binned_sample as bs
+
+    counts = torch.zeros(2, dtype=torch.int64, device=data.device)
+    out = bs.slab_sample(data, plan, overflow=counts[0:1])
+    ref = bs.slab_sample_plain(data, plan, counts[1:2])
+    k2, plain = counts.tolist()
+    if k2 != plain:
+        raise AssertionError(f"{what}: K2 counted {k2} overflow lanes, its plain version {plain}")
+    return out, ref, k2
+
+
 def k2_phase(torch, dev):
     from parcels_tpu_torch.ops import binned_sample as bs
 
@@ -503,9 +518,7 @@ def k2_phase(torch, dev):
     if not feasible:
         raise AssertionError(f"K2: plan for {shape} at {n} lanes is not feasible")
     plan = bs._build_plan(shape, gpos)
-    out = bs.slab_sample(data, plan)
-    torch.cuda.synchronize()
-    ref = bs.slab_sample_plain(data, plan)
+    out, ref, overflow = k2_counted(torch, data, plan, f"K2 at {shape}")
     err = float((out - ref).abs().max())
     if not same_bits(torch, out, ref):  # same rounding order as the plain version
         raise AssertionError(f"K2 is not bit for bit equal to its plain version: max abs err {err}")
@@ -513,13 +526,13 @@ def k2_phase(torch, dev):
     err16 = float((out - g16).abs().max())
     # K2 takes the plain gather's stencil from each lane's own cell index and
     # reads a corner outside its window from the field, so every lane, the
-    # plan's overflow lanes among them, equals the gather; the sampler (plan
-    # and K2) reads nothing back to the host
+    # overflow lanes among them, equals the gather; the sampler (plan and K2)
+    # reads nothing back to the host
     with no_host_reads(torch, whole=True):
         vals = bs.binned_linear_sample(data, gpos)
     if not same_bits(torch, out, g16) or not same_bits(torch, vals, g16):
         raise AssertionError(f"K2 is not bit for bit the plain gather: {err16}")
-    share = int(plan["count"]) / n
+    share = overflow / n
     ms = cuda_ms(torch, lambda: bs.slab_sample(data, plan))
     queued_ms = cuda_ms(torch, lambda: bs.slab_sample(data, plan), queued=True)
     plain_ms = cuda_ms(torch, lambda: bs.slab_sample_plain(data, plan), reps=5)
@@ -537,7 +550,8 @@ def k2_phase(torch, dev):
         raise AssertionError(f"K2 staged {staged} B, its rule counted on the host {host_staged} B")
     log(f"[K2] shape {shape} lanes {n}: geometry (WT,SZ,SY,SX,bz,by,bx)={geom} feasible {feasible}, "
         f"window {4 * geom[0] * plan['WZ'] * geom[2] * geom[3]} B, ring of "
-        f"{bs.ring_planes(geom)} planes, overflow share {share:.4f}; max abs err vs plain {err:.3g}, "
+        f"{bs.ring_planes(geom)} planes, overflow share {share:.4f} ({overflow} lanes as K2 and its "
+        f"plain version counted them); max abs err vs plain {err:.3g}, "
         f"K2 on every lane equal to the plain gather bit for bit, the sampler with no host read; "
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, plan + K2 {sampler_ms:.4f} ms, kernel "
         f"queued behind a spin (device time alone) {queued_ms:.4f} ms, bound {bound_ms:.4f} ms "
@@ -593,18 +607,19 @@ def k2_cmems_block(torch, dev):
     bpos["_sorted"] = True
     del gpos, order, block
     plan = bs._build_plan(shape, bpos)
-    out = bs.slab_sample(data, plan)
+    out, _, overflow = k2_counted(torch, data, plan, "K2 on the Copernicus block")
     g16 = bs._gather16(data, bs._gather_lanes(bpos))
     if not same_bits(torch, out, g16):
         raise AssertionError("K2 on the Copernicus block is not bit for bit the plain gather: "
                              f"{float((out - g16).abs().max())}")
-    share = int(plan["count"]) / K2_BLOCK_LANES
+    share = overflow / K2_BLOCK_LANES
     ms = cuda_ms(torch, lambda: bs.slab_sample(data, plan))
     queued_ms = cuda_ms(torch, lambda: bs.slab_sample(data, plan), queued=True)
     sampler_ms = cuda_ms(torch, lambda: bs.binned_linear_sample(data, bpos), reps=10)
     log(f"[K2 cmems block] {shape} field, lanes {K2_BLOCK_LANES} of {n} sorted by the set's key: "
         f"plan geometry {bs.slab_geometry(shape, K2_BLOCK_LANES)}, sort geometry "
-        f"{bs.slab_geometry(shape, n)}; overflow share {share:.5f}; K2 on every lane equal to "
+        f"{bs.slab_geometry(shape, n)}; overflow share {share:.5f} ({overflow} lanes, K2's count "
+        f"equal to its plain version's); K2 on every lane equal to "
         f"the plain gather bit for bit; kernel {ms:.4f} ms, queued {queued_ms:.4f} ms, plan + "
         f"K2 {sampler_ms:.4f} ms")
     return dict(ms=ms, queued_ms=queued_ms, sampler_ms=sampler_ms, overflow=share)
@@ -2859,9 +2874,7 @@ def k2_on_path(torch, what, seen):
     data, gpos = seen["last"]
     shape4, n = tuple(data.shape), int(gpos["X"]["index"].shape[0])
     plan = bs._build_plan(shape4, gpos)
-    out = bs.slab_sample(data, plan)
-    torch.cuda.synchronize()
-    ref = bs.slab_sample_plain(data, plan)
+    out, ref, overflow = k2_counted(torch, data, plan, what)
     err = float((out - ref).abs().max())
     if not same_bits(torch, out, ref):
         raise AssertionError(f"{what}: K2 is not bit for bit equal to its plain version at "
@@ -2873,7 +2886,7 @@ def k2_on_path(torch, what, seen):
     if not same_bits(torch, out[live], g16[live]):
         raise AssertionError(f"{what}: K2 is not bit for bit the plain gather on its live lanes "
                              f"at {shape4}, {n} lanes")
-    share = int(plan["count"]) / n
+    share = overflow / n
     ms = cuda_ms(torch, lambda: bs.slab_sample(data, plan), reps=10)
     return (f"K2 at {shape4} on {n} engine-sorted lanes (geometry {bs.slab_geometry(shape4, n)}, "
             f"{plan['npad'] // bs.CHUNK} chunks, overflow share {share:.5f}): bit for "
@@ -3346,14 +3359,18 @@ def diverged(what, got, ref, tol=1e-4):
 
 def k2_overflow_share(seen):
     """Share of the last sampled batch's lanes with a corner outside their
-    window (read by K2 from the field) under the plan K2 would run."""
+    window (read by K2 from the field), as K2 counts them under the plan it
+    would run."""
+    import torch
+
     from parcels_tpu_torch.ops import binned_sample as bs
 
     if seen["last"] is None:
         return None
     data, gpos = seen["last"]
-    plan = bs._build_plan(tuple(data.shape), gpos)
-    return int(plan["count"]) / int(gpos["X"]["index"].shape[0])
+    counter = torch.zeros(1, dtype=torch.int64, device=data.device)
+    bs.slab_sample(data, bs._build_plan(tuple(data.shape), gpos), overflow=counter)
+    return int(counter) / int(gpos["X"]["index"].shape[0])
 
 
 def l_rank(cfg):

@@ -32,6 +32,11 @@
 //
 // Given a counter, the kernel adds to it the bytes of every copy it issues;
 // ops/binned_sample.staged_bytes counts the same on the host from the plan.
+// It adds to `overflow` the lanes it reads partly from device memory, the
+// lanes that ops/binned_sample._overflow_lanes flags: each thread counts its
+// own, and at the end a warp sums them into a shared count and the block
+// adds that with one atomic (a ballot and a shared atomic at each sample
+// spilled a register and took 4 % longer; PERF.md has the readings).
 // PERF.md (PR 5) has the readings behind GROUP, the ring's spare planes and
 // the grid.
 //
@@ -46,11 +51,11 @@
 // corner of weight 1 on an axis of one point), each corner's value times
 // the t, z, y and x weights in that order, summed in corner order from the
 // first term. A corner inside the lane's window reads the window's copy in
-// shared memory; a corner outside it (the plan's overflow lanes: chunks
-// straddling three bins, sub-blocks straddling a z transition, stale or
-// unsorted lanes) reads the field in device memory through the read-only
-// path. So every lane of a live chunk gets the gather's bits, whichever
-// chunk serves it, and no lane needs a second pass. Every product and sum is
+// shared memory; a corner outside it (overflow lanes: chunks straddling
+// three bins, sub-blocks straddling a z transition, stale or unsorted
+// lanes) reads the field in device memory through the read-only path. So
+// every lane of a live chunk gets the gather's bits, whichever chunk serves
+// it, and no lane needs a second pass. Every product and sum is
 // rounded on its own (no FMA), so the kernel equals its plain version
 // (ops/binned_sample.slab_sample_plain) bit for bit.
 #include <cstdint>
@@ -185,9 +190,10 @@ __global__ void __launch_bounds__(THREADS, 2) slab_sample_kernel(
     const int* __restrict__ it, const int* __restrict__ iz, const int* __restrict__ iy,
     const int* __restrict__ ix, const float* __restrict__ bt, const float* __restrict__ bz,
     const float* __restrict__ by, const float* __restrict__ bx, float* __restrict__ out, int n,
-    int G, int NS, int ring_offset, unsigned long long* staged) {
+    int G, int NS, int ring_offset, unsigned long long* staged, unsigned long long* overflow) {
     extern __shared__ __align__(128) unsigned char smem[];
     uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+    __shared__ unsigned int far_lanes;  // this block's overflow lanes
     Window* wins = reinterpret_cast<Window*>(smem + 16);
     float* ring = reinterpret_cast<float*>(smem + ring_offset);
     const int tid = threadIdx.x;
@@ -215,6 +221,7 @@ __global__ void __launch_bounds__(THREADS, 2) slab_sample_kernel(
         }
     }
     if (tid == 0) {
+        far_lanes = 0;
         mbar_init(bar, VEC ? 1 : THREADS);
         asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     }
@@ -228,6 +235,7 @@ __global__ void __launch_bounds__(THREADS, 2) slab_sample_kernel(
     Window prev{-1, 0, 0, 0};
     int plo = 0, phi = 0;  // the previous group's span of planes
     uint32_t phase = 0;
+    unsigned my_far = 0;  // lanes this thread read partly from device memory
     int k = next_live(0);
     while (k < nsub) {
         const Window first = wins[k];
@@ -296,6 +304,7 @@ __global__ void __launch_bounds__(THREADS, 2) slab_sample_kernel(
             const bool inside = ok[0][0] && ok[0][1] && ok[1][0] && ok[1][1] && ok[2][0] &&
                                 ok[2][1] && ok[3][0] && ok[3][1];
             const bool warp_inside = __all_sync(__activemask(), inside);
+            my_far += inside ? 0u : 1u;
 #pragma unroll
             for (int kt = 0; kt < 2; ++kt)
 #pragma unroll
@@ -349,6 +358,11 @@ __global__ void __launch_bounds__(THREADS, 2) slab_sample_kernel(
         phi = hi;
         k = next_live(k + cnt);
     }
+    // every warp's count into the block's, then one atomic a block
+    my_far = __reduce_add_sync(0xffffffffu, my_far);
+    if ((tid & 31) == 0 && my_far != 0) atomicAdd(&far_lanes, my_far);
+    __syncthreads();
+    if (tid == 0 && far_lanes != 0) atomicAdd(overflow, (unsigned long long)far_lanes);
 }
 
 }  // namespace
@@ -360,7 +374,8 @@ extern "C" int slab_sample_launch(const float* data, int T, int Z, int Y, int X,
                                   const int* ix, const float* bt, const float* bz,
                                   const float* by, const float* bx, float* out, int n, int G,
                                   int WT, int WZ, int RZ, int SY, int SX, int NS, int blocks,
-                                  int vec4, unsigned long long* staged, void* stream) {
+                                  int vec4, unsigned long long* staged,
+                                  unsigned long long* overflow, void* stream) {
     if (RZ < WZ) return (int)cudaErrorInvalidValue;
     const Geometry g{T, Z, Y, X, WT, WZ, RZ, SY, SX};
     if (blocks < 1 || blocks > G) return (int)cudaErrorInvalidValue;
@@ -374,6 +389,6 @@ extern "C" int slab_sample_launch(const float* data, int T, int Z, int Y, int X,
     if (err != cudaSuccess) return (int)err;
     kernel<<<(unsigned int)blocks, THREADS, smem, (cudaStream_t)stream>>>(
         data, g, t0, z1, y1, x1, z2, y2, x2, shalf, z0w, live, it, iz, iy, ix, bt, bz, by, bx,
-        out, n, G, NS, ring_offset, staged);
+        out, n, G, NS, ring_offset, staged, overflow);
     return (int)cudaGetLastError();
 }

@@ -41,7 +41,7 @@ KERNEL_SOURCES = {
     "slab_sample": (
         "slab_sample.cu",
         "slab_sample_launch",
-        [_P, _I, _I, _I, _I] + [_P] * 10 + [_P] * 9 + [_I] * 10 + [_P, _P],
+        [_P, _I, _I, _I, _I] + [_P] * 10 + [_P] * 9 + [_I] * 10 + [_P, _P, _P],
     ),
     "fused_rk4": (
         "fused_rk4.cu",

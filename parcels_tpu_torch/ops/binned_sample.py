@@ -19,8 +19,9 @@ the field in device memory. So every lane of a live chunk gets the gather's
 bits from the one kernel call: correctness never depends on sortedness, a
 lane's value depends neither on the chunk it shares nor on how many lanes
 overflow, and a run's bits follow neither the sort points nor the chunk
-lengths that set them. The plan still counts its overflow lanes
-(``profiling.k2_overflow_lanes``), on the device, without a host read.
+lengths that set them. K2 counts the overflow lanes it serves into a
+counter on its device (``profiling.k2_overflow_counter``), without a host
+read; its plain version counts the same lanes (``_overflow_lanes``).
 
 What changed for the card: the JAX planner sized a slab pair for the TPU's
 on-chip memory, scored it with the TPU's FLOP/byte rate and aligned DMA
@@ -218,7 +219,7 @@ def sort_key_for(spec, gpos, shape4, n, z_occ: float | None = None):
 
 
 # ---------------------------------------------------------------------------
-# plan: per-chunk slab origins + slab-relative positions + overflow lanes
+# plan: per-chunk slab origins, per-sub-block halves and z windows
 # ---------------------------------------------------------------------------
 
 
@@ -247,8 +248,6 @@ def _build_plan(shape4, gpos):
 
     # two candidate bins per chunk: of the first and of the last lane
     sel1 = (zb == zb[:, :1]) & (yb == yb[:, :1]) & (xb == xb[:, :1])
-    sel2 = (zb == zb[:, -1:]) & (yb == yb[:, -1:]) & (xb == xb[:, -1:])
-    overflow = ~(sel1 | sel2)
 
     origins = {}
     for tag, col in (("1", 0), ("2", -1)):
@@ -264,9 +263,7 @@ def _build_plan(shape4, gpos):
     # time origin: per-chunk min (shared by both slabs)
     tblend = 1 if T > 1 else 0
     tci = torch.clamp(gpos["T"]["index"].to(i32), 0, max(T - 1 - tblend, 0))
-    tci_c = padded(tci).reshape(G, CHUNK)
-    t0 = torch.clamp(tci_c.min(dim=1).values, 0, max(T - WT, 0))
-    overflow = overflow | (tci_c + tblend > t0[:, None] + (WT - 1))
+    t0 = torch.clamp(padded(tci).reshape(G, CHUNK).min(dim=1).values, 0, max(T - WT, 0))
 
     # per-lane slab half (0 -> first-lane bin, 1 -> last-lane bin); when the
     # halves coincide everything maps to half 0
@@ -289,46 +286,14 @@ def _build_plan(shape4, gpos):
     zmean = torch.round(zsum.to(torch.float32) / cnt.to(torch.float32)).to(i32)
     z0w = torch.clamp(zmean - 1, 0, max(SZ - WZ, 0))
 
-    # window validity: same half, z cell within the window's lower WZ-1
-    # planes (the lane also reads plane z+1)
-    if Z > 1:
-        ok_z = (zrel_s >= z0w[:, :, None]) & (zrel_s <= z0w[:, :, None] + (WZ - 2))
-    else:
-        ok_z = torch.ones_like(in_maj)
-    overflow = overflow | (~(in_maj & ok_z)).reshape(G, CHUNK)
-
-    # every corner the gather reads (``_gather16``: clamp(index + k, 0, dim - 1))
-    # must lie in the lane's sub-block window; K2's value is then the gather's
-    sub = shalf.reshape(G, NS, 1).expand(G, NS, LANE).reshape(G, CHUNK) == 1
-    zwin = z0w.reshape(G, NS, 1).expand(G, NS, LANE).reshape(G, CHUNK)
-
-    def win(a):
-        return torch.where(sub, origins[a + "2"][:, None], origins[a + "1"][:, None])
-
-    inside = torch.ones(G, CHUNK, dtype=torch.bool, device=zb.device)
-    for ax, dim, o, ext in (("T", T, t0[:, None], WT), ("Z", Z, win("z") + zwin, WZ),
-                            ("Y", Y, win("y"), SY), ("X", X, win("x"), SX)):
-        idx = padded(gpos[ax]["index"].to(i32)).reshape(G, CHUNK)
-        lo = torch.clamp(idx, 0, dim - 1)
-        hi = torch.clamp(idx + (1 if dim > 1 else 0), 0, dim - 1)
-        inside = inside & (lo >= o) & (hi <= o + (ext - 1))
-    overflow = overflow | ~inside
-
-    # dead lanes (capacity padding, deleted particles) never need values:
-    # leave them out of the overflow count; chunks with no live lane are
+    # chunks with no live lane (capacity padding, deleted particles) are
     # skipped by the kernel
     active = gpos.get("active")
     if active is not None:
-        act_c = padded(active).reshape(G, CHUNK)
-        overflow = overflow & act_c
-        live = act_c.any(dim=1).to(i32)
+        live = padded(active).reshape(G, CHUNK).any(dim=1).to(i32)
     else:
         live = torch.ones(G, dtype=i32, device=zb.device)
 
-    overflow = overflow.reshape(npad)[:n]
-    count = overflow.sum()
-    profiling.k2_lanes += n
-    profiling.add_k2_overflow(count)
     return {
         "G": G,
         "NS": NS,
@@ -344,9 +309,6 @@ def _build_plan(shape4, gpos):
         # each lane's own cell index and bcoord, (T, Z, Y, X), as the gather reads them
         "index": tuple(gpos[ax]["index"].to(i32).contiguous() for ax in "TZYX"),
         "bcoord": tuple(gpos[ax]["bcoord"].to(torch.float32).contiguous() for ax in "TZYX"),
-        # lanes with a corner outside their window, which K2 reads from the field
-        "overflow": overflow,
-        "count": count,
     }
 
 
@@ -393,12 +355,29 @@ def _levels(index, bcoord, dim):
     return [(torch.clamp(i, 0, dim - 1), 1.0 - bcoord), (torch.clamp(i + 1, 0, dim - 1), bcoord)]
 
 
-def slab_sample_plain(data: torch.Tensor, plan) -> torch.Tensor:
+def _overflow_lanes(plan, shape4) -> torch.Tensor:
+    """(n,) bool: the lanes of live chunks with a corner (as ``_levels``
+    gives them) outside their sub-block's window, which K2 reads from the
+    field. The kernel counts the same lanes."""
+    n = plan["n"]
+    device = plan["live"].device
+    inside = torch.ones(n, dtype=torch.bool, device=device)
+    exts = (plan["geom"][0], plan["WZ"], *plan["geom"][2:4])
+    for o, ext, i, b, d in zip(_lane_windows(plan, device), exts, plan["index"], plan["bcoord"],
+                               shape4):
+        for c, _ in _levels(i, b, d):
+            inside = inside & (c >= o[:n]) & (c < o[:n] + ext)
+    return ~inside & (plan["live"][torch.arange(n, device=device) // CHUNK] == 1)
+
+
+def slab_sample_plain(data: torch.Tensor, plan, overflow: torch.Tensor | None = None) -> torch.Tensor:
     """Plain PyTorch version of K2, operation for operation: (n,) values.
 
     Every lane of a live chunk gets ``_gather16``'s value bit for bit: a
     corner reads the field element that K2 reads from its window's copy or,
     outside the window, from device memory. Lanes of dead chunks are 0.
+    ``overflow``, a one-element int64 tensor, receives the lanes K2 reads
+    partly from the field (``_overflow_lanes``), as the kernel counts them.
     """
     T, Z, Y, X = data.shape
     n = plan["n"]
@@ -413,6 +392,8 @@ def slab_sample_plain(data: torch.Tensor, plan) -> torch.Tensor:
                     v = flat[((ct * Z + cz) * Y + cy) * X + cx]
                     v = (((v * wt) * wz) * wy) * wx
                     acc = v if acc is None else acc + v
+    if overflow is not None:
+        overflow += _overflow_lanes(plan, data.shape).sum()
     return torch.where(plan["live"][chunk] == 1, acc, 0.0)
 
 
@@ -568,17 +549,26 @@ def edge_plans(X=520, device="cpu"):
                          cols[5], seed=X, device=device)
 
 
-def slab_sample(data: torch.Tensor, plan, staged: torch.Tensor | None = None) -> torch.Tensor:
+def slab_sample(data: torch.Tensor, plan, staged: torch.Tensor | None = None,
+                overflow: torch.Tensor | None = None) -> torch.Tensor:
     """Sample every planned lane, from its staged window where its corners
     lie there and from the field where they do not: (n,) values.
 
     On a CUDA tensor this launches K2 (``slab_sample.launches`` counts the
     launches); on a CPU tensor it runs the plain version. ``staged``, a
     one-element int64 tensor on the card, receives the bytes of the copies
-    the kernel issues.
+    the kernel issues. ``overflow``, a one-element int64 tensor on the
+    field's device, receives the lanes read partly from the field; without
+    it they go to ``profiling.k2_overflow_counter`` and the call's lanes to
+    ``profiling.k2_lanes``.
     """
+    if overflow is None:
+        overflow = profiling.k2_overflow_counter(data.device)
+        profiling.k2_lanes += plan["n"]
+    if overflow.dtype != torch.int64 or overflow.device != data.device:
+        raise ValueError("slab_sample: overflow must be an int64 tensor on the field's device")
     if data.device.type == "cpu":
-        return slab_sample_plain(data, plan)
+        return slab_sample_plain(data, plan, overflow)
     if data.device.type != "cuda" or data.dim() != 4:
         raise ValueError(f"slab_sample: expected a 4-D CUDA or CPU field, got {data.device}")
     if data.dtype != torch.float32 or not data.is_contiguous():
@@ -614,7 +604,7 @@ def slab_sample(data: torch.Tensor, plan, staged: torch.Tensor | None = None) ->
         *(a.data_ptr() for a in plan["index"]), *(a.data_ptr() for a in plan["bcoord"]),
         out.data_ptr(), n, G, WT, plan["WZ"], ring_planes(plan["geom"]), SY, SX, NS,
         k2_grid(G, torch.cuda.get_device_properties(data.device).multi_processor_count), vec4,
-        None if staged is None else staged.data_ptr(),
+        None if staged is None else staged.data_ptr(), overflow.data_ptr(),
         torch.cuda.current_stream(data.device).cuda_stream,
     )
     if err != 0:

@@ -47,10 +47,10 @@ before and after the work of interest):
 - ``host_reads``: synchronizing host transfers on the main path, by site
   (``sync``); a site's span is ``parcels.sync.<site>``;
 - ``block_steps``: ``engine_step`` calls (a set step of B blocks counts B);
-- ``k2_lanes``, ``k2_overflow_lanes``: each K2 plan's lanes and those with
-  a corner outside their window, which K2 reads from device memory. A
-  plan's overflow count stays on its device (``add_k2_overflow``) and is
-  folded into ``k2_overflow_lanes`` when ``counters()`` is called.
+- ``k2_lanes``, ``k2_overflow_lanes``: each K2 call's lanes, and those of
+  them that K2 read partly from device memory (a corner outside their
+  window). K2 adds the overflow lanes in place to a counter on its device
+  (``k2_overflow_counter``), with no host read; ``counters()`` reads them.
 
 The launch counters of the kernel wrappers (``fold_sample.launches``,
 ``slab_sample.launches``, ``cgrid_repair.launches``, ...) and the stage
@@ -66,17 +66,16 @@ import os
 import torch
 from torch.autograd import profiler as _autograd_profiler
 
-__all__ = ["add_k2_overflow", "annotate", "counters", "span", "sync", "trace"]
+__all__ = ["annotate", "counters", "k2_overflow_counter", "span", "sync", "trace"]
 
 #: synchronizing host transfers on the main path, by site
 host_reads: dict[str, int] = {}
 #: engine_step calls
 block_steps = 0
-#: lanes of every K2 plan, and those with a corner outside their window
+#: lanes of every K2 call
 k2_lanes = 0
-k2_overflow_lanes = 0
-#: overflow counts of plans on a card, by device, not yet folded in
-_k2_overflow_pending: dict = {}
+#: by device, the one-element int64 tensor K2 adds its overflow lanes to
+_k2_overflow: dict = {}
 
 _OFF = contextlib.nullcontext()
 
@@ -125,28 +124,19 @@ def sync(site: str):
     return span("parcels.sync.", site)
 
 
-def add_k2_overflow(count: torch.Tensor) -> None:
-    """Add a K2 plan's overflow count (a 0-dim integer tensor) to
-    ``k2_overflow_lanes``: at once on the CPU; on a card into a tensor on
-    that device, with no host read, until ``counters()`` folds it in."""
-    global k2_overflow_lanes
-    if count.device.type == "cpu":
-        k2_overflow_lanes += int(count)
-        return
-    pending = _k2_overflow_pending.get(count.device)
-    if pending is None:
-        _k2_overflow_pending[count.device] = count.clone()
-    else:
-        pending.add_(count)
+def k2_overflow_counter(device) -> torch.Tensor:
+    """The counter on ``device`` that K2 adds the lanes it reads partly from
+    device memory to (a one-element int64 tensor, made at first use)."""
+    counter = _k2_overflow.get(device)
+    if counter is None:
+        counter = _k2_overflow[device] = torch.zeros(1, dtype=torch.int64, device=device)
+    return counter
 
 
 def counters() -> dict:
     """The counters now: ``host_reads`` (all sites), ``block_steps``,
-    ``k2_lanes``, ``k2_overflow_lanes`` (reading the card's pending
-    overflow counts)."""
-    global k2_overflow_lanes
-    for pending in _k2_overflow_pending.values():
-        k2_overflow_lanes += int(pending)
-    _k2_overflow_pending.clear()
+    ``k2_lanes``, ``k2_overflow_lanes`` (reading K2's counters on their
+    devices)."""
     return {"host_reads": sum(host_reads.values()), "block_steps": block_steps,
-            "k2_lanes": k2_lanes, "k2_overflow_lanes": k2_overflow_lanes}
+            "k2_lanes": k2_lanes,
+            "k2_overflow_lanes": sum(int(c) for c in _k2_overflow.values())}

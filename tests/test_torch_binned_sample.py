@@ -55,6 +55,35 @@ def _both(data, pos):
     return got, want, tg
 
 
+def _plain_count(data, plan):
+    """The lanes K2's plain version counts as read partly from the field."""
+    counter = torch.zeros(1, dtype=torch.int64, device=data.device)
+    tbs.slab_sample_plain(data, plan, counter)
+    return int(counter)
+
+
+def _k2(data, plan, staged=None):
+    """K2's values, and the lanes it counts as read partly from the field."""
+    counter = torch.zeros(1, dtype=torch.int64, device=data.device)
+    return tbs.slab_sample(data, plan, staged, counter), int(counter)
+
+
+def _overflow_brute(plan, shape4):
+    """Per lane, in numpy from each sub-block's window: a lane of a live
+    chunk with a corner (clamped to the field) outside its window."""
+    n, ext = plan["n"], (plan["geom"][0], plan["WZ"], *plan["geom"][2:4])
+    wins = _windows_brute(plan)
+    sub = np.arange(n) // tbs.LANE
+    live = np.array([w is not None for w in wins])[sub]
+    org = np.array([(w[0][0], w[1], w[0][1], w[0][2]) if w else (0, 0, 0, 0) for w in wins])[sub]
+    far = np.zeros(n, bool)
+    for a, (idx, d) in enumerate(zip(plan["index"], shape4)):
+        idx = idx.cpu().numpy().astype(np.int64)
+        for c in (np.clip(idx, 0, d - 1), np.clip(idx + (d > 1), 0, d - 1)):
+            far |= (c < org[:, a]) | (c >= org[:, a] + ext[a])
+    return far & live
+
+
 @pytest.mark.parametrize(
     "shape4, lockstep",
     [((2, 4, 16, 256), False), ((3, 1, 32, 384), False), ((2, 8, 40, 512), False),
@@ -78,7 +107,7 @@ def test_binned_unsorted_matches_reference():
     rng = np.random.default_rng(5)
     data = rng.uniform(-1, 1, shape4).astype(np.float32)
     got, want, tg = _both(data, _random_positions(rng, 4096, shape4))
-    assert int(tbs._get_plan(shape4, tg)["count"]) > 4096 // 8
+    assert _plain_count(torch.as_tensor(data), tbs._get_plan(shape4, tg)) > 4096 // 8
     np.testing.assert_allclose(got, want, **TOL)
 
 
@@ -93,7 +122,7 @@ def test_binned_partial_overflow_matches_reference():
     pos["Y"][0][lanes] = rng.integers(0, 63, 50)
     pos["X"][0][lanes] = rng.integers(0, 1023, 50)
     got, want, tg = _both(data, pos)
-    assert 50 <= int(tbs._get_plan(shape4, tg)["count"]) <= 4096
+    assert 50 <= _plain_count(torch.as_tensor(data), tbs._get_plan(shape4, tg)) <= 4096
     np.testing.assert_allclose(got, want, **TOL)
 
 
@@ -108,10 +137,10 @@ def test_plain_equals_gather_on_window_lanes():
     pos = _sort_positions(_random_positions(rng, n, shape4), shape4)
     tg = {ax: {"index": torch.as_tensor(i), "bcoord": torch.as_tensor(b)} for ax, (i, b) in pos.items()}
     plan = tbs._build_plan(shape4, tg)
-    assert int(plan["count"]) / n < 0.05, "sorted lanes must lie inside their windows"
+    assert _plain_count(data, plan) / n < 0.05, "sorted lanes must lie inside their windows"
     vals = tbs.slab_sample_plain(data, plan)[:n]
     ref = tbs._gather16(data, tbs._gather_lanes(tg))
-    ok = ~plan["overflow"]
+    ok = ~tbs._overflow_lanes(plan, shape4)
     np.testing.assert_allclose(vals[ok].numpy(), ref[ok].numpy(), **TOL)
 
 
@@ -128,7 +157,7 @@ def test_plain_equals_gather_bit_for_bit_on_live_lanes():
     tg = {ax: {"index": torch.as_tensor(i), "bcoord": torch.as_tensor(b)} for ax, (i, b) in pos.items()}
     plan = tbs._build_plan(shape4, tg)
     ref = tbs._gather16(data, tbs._gather_lanes(tg))
-    ok = ~plan["overflow"]
+    ok = ~tbs._overflow_lanes(plan, shape4)
     assert ok.sum() > 0.95 * n
     assert torch.equal(tbs.slab_sample_plain(data, plan)[ok], ref[ok])
     tg["_sorted"] = True
@@ -170,7 +199,9 @@ def test_plain_equals_gather_bit_for_bit_on_every_lane_of_live_chunks(kind):
     data, tg = _overflow_inputs(kind)
     plan = tbs._build_plan(tuple(data.shape), tg)
     n = plan["n"]
-    assert int(plan["count"]) == int(plan["overflow"].sum()) > 0
+    flags = tbs._overflow_lanes(plan, data.shape)
+    assert np.array_equal(flags.numpy(), _overflow_brute(plan, data.shape))
+    assert _plain_count(data, plan) == int(flags.sum()) > 0
     live = plan["live"][torch.arange(n) // tbs.CHUNK] == 1
     assert live.any() and not live.all()
     vals = tbs.slab_sample_plain(data, plan)
@@ -191,7 +222,7 @@ def test_dead_chunks_write_zero():
     tg["active"] = active
     plan = tbs._build_plan(shape4, tg)
     assert plan["live"].tolist() == [1, 0, 0]
-    assert not plan["overflow"][tbs.CHUNK:].any()
+    assert not tbs._overflow_lanes(plan, shape4)[tbs.CHUNK:].any()
     assert torch.all(tbs.slab_sample_plain(data, plan)[tbs.CHUNK:] == 0)
 
 
@@ -243,7 +274,8 @@ def test_kernel_matches_plain_on_card():
     moves of 0, 1, 2 and WZ or more planes, a change of half mid-chunk,
     consecutive chunks with equal origins, dead chunks) by bulk copies
     (X = 520) and by the scalar staging path (X = 517); planned lanes with
-    X % 4 != 0 and dead chunks."""
+    X % 4 != 0 and dead chunks. On each, K2 counts the lanes it reads
+    partly from the field as its plain version counts them."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     shape4 = (2, 16, 64, 512)
@@ -253,15 +285,18 @@ def test_kernel_matches_plain_on_card():
     tg = {ax: {"index": torch.as_tensor(i, device="cuda"),
                "bcoord": torch.as_tensor(b, device="cuda")} for ax, (i, b) in pos.items()}
     plan = tbs._build_plan(shape4, tg)
-    got = tbs.slab_sample(data, plan)
-    torch.cuda.synchronize()
+    got, count = _k2(data, plan)
     assert torch.equal(got, tbs.slab_sample_plain(data, plan))
+    # K2 counts the lanes its plain version counts
+    assert count == _plain_count(data, plan)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for X in (520, 517):
         plan = tbs.edge_plans(X, device="cuda")
         data = torch.as_tensor(rng.uniform(-1, 1, (3, 12, 40, X)).astype(np.float32), device="cuda")
         staged = torch.zeros(1, dtype=torch.int64, device="cuda")
-        assert _same_bits(tbs.slab_sample(data, plan, staged), tbs.slab_sample_plain(data, plan)), X
+        got, count = _k2(data, plan, staged)
+        assert _same_bits(got, tbs.slab_sample_plain(data, plan)), X
+        assert count == _plain_count(data, plan) > 0, X
         # the copies the kernel issued are what the host counts
         assert int(staged) == tbs.staged_bytes(plan, sms), X
     shape4 = (2, 6, 40, 1101)
@@ -272,7 +307,9 @@ def test_kernel_matches_plain_on_card():
                "bcoord": torch.as_tensor(b, device="cuda")} for ax, (i, b) in pos.items()}
     tg["active"] = torch.arange(n, device="cuda") < n - 3 * tbs.CHUNK
     plan = tbs._build_plan(shape4, tg)
-    assert _same_bits(tbs.slab_sample(data, plan), tbs.slab_sample_plain(data, plan))
+    got, count = _k2(data, plan)
+    assert _same_bits(got, tbs.slab_sample_plain(data, plan))
+    assert count == _plain_count(data, plan)
 
 
 def test_kernel_equals_gather_on_card():

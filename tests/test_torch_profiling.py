@@ -124,7 +124,7 @@ def test_host_reads_of_a_sorted_run_are_the_engine_loops():
     n = 300
     pset = tp.ParticleSet(_k2_fieldset(), x=rng.uniform(5e3, 2.1e6, n),
                           y=rng.uniform(3e3, 12e3, n), t=np.zeros(n))
-    lanes0, over0 = profiling.k2_lanes, profiling.k2_overflow_lanes
+    c0 = profiling.counters()
     reads, block_steps = _reads(lambda: pset.execute(
         tp.AdvectionRK4, dt=np.timedelta64(300, "s"), runtime=np.timedelta64(1800, "s"),
         options=tp.EngineOptions(sampler="binned", max_chunk_steps=4, chunk_target_seconds=0)))
@@ -134,8 +134,11 @@ def test_host_reads_of_a_sorted_run_are_the_engine_loops():
                      "engine.loop": steps + chunks, "engine.repeat": steps}
     assert "k2.plan" not in reads
     lanes = pset._data["state"].shape[0]
-    assert profiling.k2_lanes - lanes0 == 4 * steps * lanes
-    assert 0 <= profiling.k2_overflow_lanes - over0 <= profiling.k2_lanes - lanes0
+    c1 = profiling.counters()
+    # a K2 call each for U and V at each of the 4 stages a step
+    k2_lanes = c1["k2_lanes"] - c0["k2_lanes"]
+    assert k2_lanes == 2 * 4 * steps * lanes
+    assert 0 <= c1["k2_overflow_lanes"] - c0["k2_overflow_lanes"] <= k2_lanes
 
 
 def test_host_reads_of_a_cgrid_run_are_the_engine_loops():
