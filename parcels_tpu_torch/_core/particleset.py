@@ -27,6 +27,7 @@ import os
 import time as _time
 import types
 import warnings
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -118,6 +119,49 @@ def state_from_numpy(field_arrays: dict, pdata: dict, device):
 
 def _host(v: torch.Tensor) -> np.ndarray:
     return v.detach().cpu().numpy()
+
+
+def _upload(arr: np.ndarray, device) -> torch.Tensor:
+    """``arr`` on ``device`` with no synchronizing copy: on a card it goes
+    from pinned memory, queued on the stream."""
+    host = torch.from_numpy(arr)
+    if torch.device(device).type != "cuda":
+        return host.to(device)
+    return host.pin_memory().to(device, non_blocking=True)
+
+
+class _SetupRead(NamedTuple):
+    """``ParticleSet._setup_read``'s one read: the active lanes, those of
+    them with a finite clock and those clocks' min and max, whether any lane
+    (padding too) has a NaN clock, the z-levels the active lanes occupy
+    (None without an occupancy depth axis) and whether the ``ei`` cache
+    holds a cell (None unless asked)."""
+
+    live: int
+    finite: int
+    t_min: float
+    t_max: float
+    any_nan: bool
+    z_levels: int | None
+    seeded: bool | None
+
+
+def _occupancy_depth(fieldset) -> np.ndarray | None:
+    """The largest grid's depth axis where the live lanes' z-levels are
+    counted: 1-D, more than two levels, increasing; None elsewhere."""
+    depth = max((np.asarray(g.depth) for g in fieldset.gridset), key=lambda d: d.size, default=None)
+    if depth is not None and depth.ndim == 1 and depth.size > 2 and bool(np.all(np.diff(depth) > 0)):
+        return depth
+    return None
+
+
+def _depth_edges(depth: np.ndarray, dtype: torch.dtype) -> np.ndarray:
+    """``depth`` in ``dtype``, each edge rounded up to the nearest value of
+    ``dtype`` at or above it: for ``z`` of that dtype, ``edge <= z`` then
+    holds exactly where it does for the float64 edge."""
+    exact = np.asarray(depth, dtype=np.float64)
+    edges = exact.astype(torch.empty(0, dtype=dtype).numpy().dtype)
+    return np.where(edges < exact, np.nextafter(edges, np.inf), edges)
 
 
 def _clock_sum(d: dict) -> torch.Tensor:
@@ -484,9 +528,13 @@ class ParticleSet:
             return self._execute_impl(kernels, dt, endtime, runtime, output_file, verbose_progress)
 
     def _execute_impl(self, kernels, dt, endtime, runtime, output_file, verbose_progress):
-        with profiling.sync("execute.live"):
-            empty = len(self) == 0
-        if empty:
+        if self._data["t"].shape[0] == 0:  # no lane: nothing to reduce or run
+            return
+        domain = self.__dict__.get("_domain")
+        depth = _occupancy_depth(self.fieldset)
+        seed_check = domain is None and _sort_mode_enabled(self.fieldset)
+        setup = self._setup_read(depth, seed_check)
+        if setup.live == 0:
             return
         if isinstance(kernels, types.FunctionType):
             kernels = [kernels]
@@ -501,29 +549,30 @@ class ParticleSet:
         dt, sign_dt = _convert_dt_to_float(dt)
         runtime = _convert_runtime_to_float(runtime)
         # time plumbing sees only ACTIVE lanes (padding lanes carry t=0)
-        with profiling.sync("execute.active"):
-            active = _host(self._data["_active"])
-        with profiling.sync("execute.clock"):
-            tarr = _host(self._data["t"])
-        release_t = tarr[active]
+        first_release = np.nan
+        if setup.finite:
+            first_release = setup.t_min if sign_dt == 1 else setup.t_max
         start_time, end_time = _get_simulation_start_and_end_times(
-            self.fieldset.time_interval, release_t, runtime, endtime, sign_dt
+            self.fieldset.time_interval, first_release, runtime, endtime, sign_dt
         )
 
         d = self._data
         d["dt"] = torch.full_like(d["dt"], dt)
-        if np.isnan(tarr).any():
-            tarr = tarr.copy()
-            tarr[np.isnan(tarr)] = start_time
-            d["t"] = _to_device(tarr, self.device)
+        t0 = d["t"]
+        if setup.any_nan:
+            d["t"] = torch.where(torch.isnan(t0), start_time, t0)
         # each lane's steps are counted from its own clock (last_run_stats)
         clock0 = _clock_sum(d)
 
         outputdt = output_file.outputdt if output_file else None
-        _warn_outputdt_release_desync(outputdt, start_time, release_t)
+        _warn_outputdt_release_desync(outputdt, start_time, t0, d["_active"])
 
         rk45_mode = "RK45_tol" in self.fieldset.context
-        z_occ = self._set_sampler_occupancy_hint()
+        from parcels_tpu_torch.ops.binned_sample import quantize_z_occupancy
+
+        # the quantized share of z-cells the live lanes occupy, for the binned
+        # planner (a surface-only release occupies 1 of Z cells)
+        z_occ = quantize_z_occupancy(1.0 if depth is None else setup.z_levels / (depth.size - 1))
         # reference kernel.py:190: every execute() call requeues all active lanes
         d["state"] = torch.where(d["_active"], int(StatusCode.Evaluate), d["state"]).to(torch.int32)
         # persistent C-grid cell cache (ops/stagecache.py) and its UGRID twin
@@ -538,19 +587,15 @@ class ParticleSet:
         if uxc_ok and uxcache.UXC_KEY not in d:
             d.update(uxcache.make_soa_cache(d["state"].shape[0], uxc_meta, self.device))
 
-        domain = self.__dict__.get("_domain")
         pmesh = self.__dict__.get("_pmesh")
         sharded = domain if domain is not None else pmesh
         if domain is None:
             if pmesh is None:
                 self._pad_capacity(DEFAULT_BLOCK_SIZE)
-            if _sort_mode_enabled(self.fieldset):
-                with profiling.sync("execute.indices"):
-                    seeded = bool(self._data["ei"].any())
-                if not seeded:
-                    # sort keys come from the ei cache; seed it so the FIRST chunk
-                    # bins correctly instead of overflowing its windows
-                    self.populate_indices()
+            if seed_check and not setup.seeded:
+                # sort keys come from the ei cache; seed it so the FIRST chunk
+                # bins correctly instead of overflowing its windows
+                self.populate_indices()
         windowed = self.fieldset._time_window is not None
         f32 = dict(dtype=torch.float32, device=self.device)
         with profiling.sync("execute.dt"):  # an upload from pageable memory
@@ -908,23 +953,37 @@ class ParticleSet:
         out["_active"][n:] = False
         self._data = out
 
-    def _set_sampler_occupancy_hint(self) -> float:
-        """Quantized fraction of z-cells the live batch occupies, for the
-        binned planner (a surface-only release occupies 1 of Z cells)."""
-        from parcels_tpu_torch.ops.binned_sample import quantize_z_occupancy
-
-        frac = 1.0
-        depth = max((np.asarray(g.depth) for g in self.fieldset.gridset),
-                    key=lambda d: d.size, default=None)
-        if depth is not None and depth.ndim == 1 and depth.size > 2 and bool(np.all(np.diff(depth) > 0)):
-            with profiling.sync("execute.occupancy"):
-                z = _host(self._data["z"])
-            with profiling.sync("execute.occupancy"):
-                act = _host(self._data["_active"])
-            z = z[act] if act.any() else z
-            zi = np.clip(np.searchsorted(depth, z, side="right") - 1, 0, depth.size - 2)
-            frac = np.unique(zi).size / max(depth.size - 1, 1)
-        return quantize_z_occupancy(frac)
+    def _setup_read(self, depth, seed_check: bool) -> _SetupRead:
+        """What ``execute``'s set-up decides on, reduced on the lanes' device
+        and read back at once (site ``execute.setup``). ``depth`` is
+        ``_occupancy_depth``'s axis, or None; ``seed_check`` asks whether the
+        ``ei`` cache holds any cell."""
+        d = self._data
+        act, t = d["_active"], d["t"]
+        finite = act & torch.isfinite(t)
+        parts = [act.sum(), finite.sum(), torch.where(finite, t, np.inf).min(),
+                 torch.where(finite, t, -np.inf).max(), torch.isnan(t).any()]
+        if depth is not None:
+            z = d["z"]
+            edges = _upload(_depth_edges(depth, z.dtype), z.device)
+            # the edges at or below z, as numpy's side="right" over the float64
+            # axis counts them; torch's upper bound, as numpy, puts NaN last
+            zi = torch.searchsorted(edges, z, right=True, out_int32=True)
+            zi = torch.where(act, zi.sub_(1).clamp_(0, depth.size - 2), depth.size - 1)
+            present = torch.zeros(depth.size, dtype=torch.int32, device=z.device)
+            present[zi] = 1  # the last bin takes the inactive lanes
+            parts.append(present[:-1].sum())
+        if seed_check:
+            parts.append(d["ei"].any())
+        with profiling.sync("execute.setup"):
+            vals = torch.stack([p.double() for p in parts]).tolist()
+        live, finite_n, t_min, t_max, any_nan = vals[:5]
+        rest = iter(vals[5:])
+        return _SetupRead(
+            live=int(live), finite=int(finite_n), t_min=t_min, t_max=t_max, any_nan=bool(any_nan),
+            z_levels=int(next(rest)) if depth is not None else None,
+            seeded=bool(next(rest)) if seed_check else None,
+        )
 
 
 class _ParticleRecord:
@@ -968,12 +1027,17 @@ def _check_kernel_signature(f):
         )
 
 
-def _warn_outputdt_release_desync(outputdt, starttime, release_times):
+def _warn_outputdt_release_desync(outputdt, starttime, t, active):
+    """Warn where an active lane's finite release clock ``t`` is off the
+    ``outputdt`` grid from ``starttime``. The test runs on the lanes' device
+    as numpy runs it on float32 clocks: minus a Python float they stay
+    float32, and so does their remainder."""
     if not outputdt:
         return
-    rt = np.asarray(release_times)
-    finite = np.isfinite(rt)
-    if np.any(np.mod(rt[finite] - starttime, outputdt) != 0):
+    off = active & torch.isfinite(t) & (torch.remainder(t - starttime, outputdt) != 0)
+    with profiling.sync("execute.outputdt"):
+        desync = bool(off.any())
+    if desync:
         warnings.warn(
             "Some of the particles have a start time difference that is not a multiple of outputdt. "
             "This could cause the first output of some of the particles that start later "
@@ -1022,8 +1086,10 @@ def _convert_runtime_to_float(runtime):
     return runtime
 
 
-def _get_simulation_start_and_end_times(time_interval, release_times, runtime, endtime, sign_dt):
-    """Resolve (start, end) float seconds (reference particleset.py:522-584)."""
+def _get_simulation_start_and_end_times(time_interval, first_release, runtime, endtime, sign_dt):
+    """Resolve (start, end) float seconds (reference particleset.py:522-584)
+    from the first finite release clock in ``sign_dt``'s direction, NaN
+    where no clock is finite."""
     if runtime is not None and endtime is not None:
         raise ValueError(
             f"runtime and endtime are mutually exclusive - provide one or the other. "
@@ -1033,13 +1099,6 @@ def _get_simulation_start_and_end_times(time_interval, release_times, runtime, e
         raise ValueError("The runtime must be provided when the time_interval is not defined for a fieldset.")
     if runtime is None and endtime is None:
         raise ValueError("Either runtime or endtime must be provided.")
-
-    release_times = np.asarray(release_times, dtype=np.float64)
-    finite = release_times[np.isfinite(release_times)]
-    if sign_dt == 1:
-        first_release = finite.min() if finite.size else np.nan
-    else:
-        first_release = finite.max() if finite.size else np.nan
 
     if time_interval is not None and endtime is not None:
         if isinstance(endtime, (np.datetime64, np.timedelta64)) or type(endtime) is type(time_interval.left):

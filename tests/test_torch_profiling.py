@@ -92,11 +92,28 @@ def _reads(run):
 
 
 def _execute_reads(chunks):
-    """The reads of one ``execute`` call outside the engine: the live count,
-    the lanes' activity and clocks, dt's upload, then each chunk's endtime
-    upload and deferred flag read, and the run's statistics."""
-    return {"execute.live": 1, "execute.active": 1, "execute.clock": 1, "execute.dt": 1,
-            "execute.endtime": chunks, "execute.drain": chunks, "execute.stats": 1}
+    """The reads of one ``execute`` call outside the engine: the set-up's
+    one read (live count, release clocks, NaN check, z occupancy, sort
+    seeding), dt's upload, then each chunk's endtime upload and deferred
+    flag read, and the run's statistics."""
+    return {"execute.setup": 1, "execute.dt": 1, "execute.endtime": chunks,
+            "execute.drain": chunks, "execute.stats": 1}
+
+
+def test_host_reads_of_a_run_with_output(tmp_path):
+    """12 steps in chunks of 4 with a snapshot every 30 min: the chunks end
+    at 20, 30, 50 and 60 min, and the release clocks' test against outputdt
+    reads one flag."""
+    pset = _eddy_pset(2)
+    pf = tp.ParticleFile(str(tmp_path / "out.parquet"), outputdt=np.timedelta64(30, "m"), mode="w")
+    reads, block_steps = _reads(lambda: pset.execute(
+        tp.AdvectionRK4, dt=np.timedelta64(5, "m"), runtime=np.timedelta64(1, "h"), output_file=pf,
+        options=tp.EngineOptions(max_chunk_steps=4, chunk_target_seconds=0)))
+    pf.close()
+    steps, chunks = 12, 4
+    assert block_steps == steps
+    assert reads == {**_execute_reads(chunks), "execute.outputdt": 1,
+                     "engine.loop": steps + chunks, "engine.repeat": steps}
 
 
 def _k2_fieldset():
@@ -118,8 +135,9 @@ def _k2_fieldset():
 
 def test_host_reads_of_a_sorted_run_are_the_engine_loops():
     """6 RK4 steps in chunks of 4 and 2, one block: a loop condition a step
-    and one at each chunk's end, a Repeat check a step, and the sort's
-    seeding check; K2's plans (4 a step) read nothing back."""
+    and one at each chunk's end, a Repeat check a step (the sort's seeding
+    check is part of the set-up's read); K2's plans (4 a step) read nothing
+    back."""
     rng = np.random.default_rng(1)
     n = 300
     pset = tp.ParticleSet(_k2_fieldset(), x=rng.uniform(5e3, 2.1e6, n),
@@ -130,7 +148,7 @@ def test_host_reads_of_a_sorted_run_are_the_engine_loops():
         options=tp.EngineOptions(sampler="binned", max_chunk_steps=4, chunk_target_seconds=0)))
     steps, chunks = 6, 2
     assert block_steps == steps
-    assert reads == {**_execute_reads(chunks), "execute.indices": 1,
+    assert reads == {**_execute_reads(chunks),
                      "engine.loop": steps + chunks, "engine.repeat": steps}
     assert "k2.plan" not in reads
     lanes = pset._data["state"].shape[0]
@@ -145,7 +163,8 @@ def test_host_reads_of_a_cgrid_run_are_the_engine_loops():
     """10 RK4 steps in chunks of 4, 4 and 2 through the C-grid stage cache
     (its plain version, forced) with a second kernel after RK4: a loop
     condition a step and one at each chunk's end, a Repeat check after each
-    kernel, and the occupancy hint's two reads (3 depth levels)."""
+    kernel; the occupancy of the 3 depth levels is part of the set-up's
+    read."""
     fs = moi_like_fieldset(xdim=96, ydim=64, zdim=3, seed=2, device="cpu")
 
     def Idle(particles, fieldset):  # noqa: N802
@@ -157,8 +176,9 @@ def test_host_reads_of_a_cgrid_run_are_the_engine_loops():
         options=tp.EngineOptions(stagecache="force", max_chunk_steps=4, chunk_target_seconds=0)))
     steps, chunks, kernels = 10, 3, 2
     assert block_steps == steps
-    assert reads == {**_execute_reads(chunks), "execute.occupancy": 2,
+    assert reads == {**_execute_reads(chunks),
                      "engine.loop": steps + chunks, "engine.repeat": kernels * steps}
+    assert pset.last_run_stats["z_occupancy_hint"] == 0.5
 
 
 def test_run_stats_count_each_lanes_own_steps():
